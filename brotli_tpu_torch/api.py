@@ -1,0 +1,56 @@
+"""Public API of the port: one-shot `compress` through the q10/q11
+device optimal-parse pipeline, `decompress` through the native
+decoder, and one `error` type (the brotli_tpu.api surface, without
+the streaming classes yet)."""
+
+import numpy as np
+
+from . import native
+from .enc.encoder import (_encode_q11_streamed, _sanitize_params,
+                          _store_uncompressed)
+from .format import constants as C
+from .utils.device import resolve
+
+MIN_DEVICE_INPUT = 1 << 18  # the JAX package's device-encode threshold
+
+
+class error(Exception):
+    """Raised on invalid input or parameters (parity: brotli.error)."""
+
+
+def compress(data, quality=11, lgwin=22, lgblock=0, device=None,
+             mode=0, dictionary=None, large_window=False) -> bytes:
+    """One-shot q10/q11 compression on `device` (None = "cuda"; "cpu"
+    runs the plain PyTorch versions of the kernels). Qualities up to 9,
+    inputs under 256 KiB, dictionaries, large windows and modes other
+    than generic are not ported yet and raise NotImplementedError."""
+    dev = resolve(device)
+    quality, lgwin, lgblock = _sanitize_params(quality, lgwin, lgblock)
+    raw = bytes(data)
+    n = len(raw)
+    if quality < 10:
+        raise NotImplementedError(
+            "quality <= 9 needs the device matcher (ROADMAP M6)")
+    if n < MIN_DEVICE_INPUT:
+        raise NotImplementedError(
+            "inputs under 256 KiB take the host tiers (ROADMAP M13)")
+    if dictionary is not None or large_window or mode != 0:
+        raise NotImplementedError(
+            "dictionaries, large windows and modes (ROADMAP M13)")
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    try:
+        out = _encode_q11_streamed(arr, n, C.max_backward_distance(lgwin),
+                                   quality, lgblock, lgwin, dev)
+    except ValueError as e:
+        raise error(str(e)) from e
+    if len(out) >= n + 4:
+        return _store_uncompressed(arr, lgwin)
+    return out
+
+
+def decompress(data) -> bytes:
+    """Decode a complete brotli stream with the native decoder."""
+    try:
+        return native.decode(bytes(data))
+    except ValueError as e:
+        raise error(str(e)) from e

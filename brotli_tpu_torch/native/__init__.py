@@ -1,0 +1,221 @@
+"""Native host runtime (C), trimmed to what the q11 device pipeline
+calls: the seed parse, the static-dictionary probe and post-pass, the
+region serializer and the decoder. Copy of the ctypes bindings of
+brotli_tpu.native over verbatim copies of its C sources.
+
+The library is compiled with the system compiler into `_build/` at
+first use; it is never committed.
+"""
+
+import ctypes
+import os
+import pathlib
+import subprocess
+import threading
+
+import numpy as np
+
+from ..format.dictionary import dictionary_data
+
+_DIR = pathlib.Path(__file__).resolve().parent
+_LIB = _DIR / "_build" / "libbtpu.so"
+_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_enc.c")
+
+_lib = None
+_lock = threading.Lock()
+
+
+def build() -> None:
+    """Compile the library unless it is newer than its sources."""
+    (_DIR / "_build").mkdir(exist_ok=True)
+    newest = max(s.stat().st_mtime
+                 for s in _SRCS + (_DIR / "btpu_tables.h",))
+    if _LIB.exists() and _LIB.stat().st_mtime >= newest:
+        return
+    tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
+    subprocess.run(
+        ["cc", "-O2", "-march=native", "-shared", "-fPIC", "-o",
+         str(tmp)] + [str(s) for s in _SRCS] + ["-lm"],
+        check=True, capture_output=True)
+    os.replace(tmp, _LIB)
+
+
+def get_lib():
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(_LIB))
+            lib.btpu_decode_ex.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_decode_ex.restype = ctypes.c_int
+            lib.btpu_free.argtypes = [ctypes.c_void_p]
+            lib.btpu_find_matches.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_find_matches.restype = ctypes.c_int
+            lib.btpu_serialize.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
+                ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t), ctypes.c_void_p]
+            lib.btpu_serialize.restype = ctypes.c_int
+            lib.btpu_dict_post.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
+                ctypes.c_size_t, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_dict_post.restype = ctypes.c_int
+            lib.btpu_dict_probe_all.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
+                ctypes.c_size_t, ctypes.c_char_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_dict_probe_all.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+class DecodeError(ValueError):
+    """Native decode failure; `code` is the reference's
+    BrotliDecoderErrorCode value."""
+
+    def __init__(self, code: int):
+        self.code = code
+        super().__init__(f"decode error {code}")
+
+
+_ENC_ERRORS = {
+    -3: "out of memory",
+    -6: "unsupported parameters for the native encoder",
+}
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def decode(data: bytes) -> bytes:
+    """Native whole-buffer decode; raises DecodeError on invalid
+    streams."""
+    lib = get_lib()
+    out_ptr = ctypes.c_void_p()
+    out_len = ctypes.c_size_t()
+    rc = lib.btpu_decode_ex(data, len(data), dictionary_data(), None, 0,
+                            0, ctypes.byref(out_ptr),
+                            ctypes.byref(out_len))
+    if rc != 0:
+        raise DecodeError(rc)
+    try:
+        return ctypes.string_at(out_ptr, out_len.value)
+    finally:
+        lib.btpu_free(out_ptr)
+
+
+def find_matches(data: bytes, quality: int, lgwin: int):
+    """Native greedy/lazy match finder (no emission, no dictionary):
+    (pos, len, dist) uint32 arrays in position order -- the DP's seed
+    parse."""
+    lib = get_lib()
+    n = len(data)
+    cap = n // 4 + 16
+    pos = np.empty(cap, np.uint32)
+    lens = np.empty(cap, np.uint32)
+    dist = np.empty(cap, np.uint32)
+    cnt = ctypes.c_size_t()
+    rc = lib.btpu_find_matches(data, n, quality, lgwin, _ptr(pos),
+                               _ptr(lens), _ptr(dist), cap,
+                               ctypes.byref(cnt))
+    if rc != 0:
+        raise ValueError(_ENC_ERRORS.get(rc, f"match-find error {rc}"))
+    k = cnt.value
+    return pos[:k], lens[:k], dist[:k]
+
+
+def dict_post(data: bytes, mpos, mlen, max_distance: int,
+              base: int = 0, active_from: int = 0):
+    """Static-dictionary post-pass over parse gaps: the NEW word
+    references as (pos, out_advance, dist, flag) int64 arrays
+    (flag = 2000 + word length)."""
+    lib = get_lib()
+    mp = np.ascontiguousarray(mpos, np.uint32)
+    ml = np.ascontiguousarray(mlen, np.uint32)
+    cap = max(len(data) // 8 + 64, 1024)
+    op = np.empty(cap, np.uint32)
+    ol = np.empty(cap, np.uint32)
+    od = np.empty(cap, np.uint32)
+    of = np.empty(cap, np.uint32)
+    cnt = ctypes.c_size_t()
+    rc = lib.btpu_dict_post(
+        data, len(data), base, active_from, max_distance,
+        dictionary_data(), _ptr(mp), _ptr(ml), len(mp), _ptr(op),
+        _ptr(ol), _ptr(od), _ptr(of), cap, ctypes.byref(cnt))
+    if rc != 0:
+        raise ValueError(_ENC_ERRORS.get(rc, f"dict_post error {rc}"))
+    k = cnt.value
+    return (op[:k].astype(np.int64), ol[:k].astype(np.int64),
+            od[:k].astype(np.int64), of[:k].astype(np.int64))
+
+
+def dict_probe_all(data: bytes, mpos, mlen, base: int = 0,
+                   maxback: int = (1 << 22) - 16):
+    """Static-dictionary probe wherever the seed parse is weak (dict
+    edges for the DP). Returns (pos u32, payload u32) sparse arrays;
+    payload = out_advance << 22 | word_len << 17 | dictoff."""
+    lib = get_lib()
+    mp = np.ascontiguousarray(mpos, np.uint32)
+    ml = np.ascontiguousarray(mlen, np.uint32)
+    cap = max(len(data) // 8 + 64, 1024)
+    op = np.empty(cap, np.uint32)
+    pl = np.empty(cap, np.uint32)
+    cnt = ctypes.c_size_t()
+    rc = lib.btpu_dict_probe_all(
+        data, len(data), base, maxback, dictionary_data(), _ptr(mp),
+        _ptr(ml), len(mp), _ptr(op), _ptr(pl), cap, ctypes.byref(cnt))
+    if rc != 0:
+        raise ValueError(_ENC_ERRORS.get(rc, f"probe error {rc}"))
+    k = cnt.value
+    return op[:k].copy(), pl[:k].copy()
+
+
+def serialize_region(data: bytes, lo: int, hi: int, matches,
+                     quality: int, lgwin: int, ring=None,
+                     write_header: bool = False, is_last: bool = False,
+                     align_end: bool = True):
+    """Native serialization of a parsed region from (pos, len, dist,
+    flag) match arrays (BrotliStoreMetaBlock role). Returns (bytes,
+    exit_ring). Raises ValueError for unsupported flags."""
+    lib = get_lib()
+    m, lens, dists, flags = (np.ascontiguousarray(a, np.uint32)
+                             for a in matches)
+    ring_in = None
+    if ring is not None:
+        ring_in = np.ascontiguousarray(ring, np.uint32)
+    ring_out = np.zeros(4, np.uint32)
+    out_ptr = ctypes.c_void_p()
+    out_len = ctypes.c_size_t()
+    rc = lib.btpu_serialize(
+        data, len(data), lo, hi, quality, lgwin, _ptr(m), _ptr(lens),
+        _ptr(dists), _ptr(flags), len(m),
+        _ptr(ring_in) if ring_in is not None else None,
+        1 if write_header else 0, 1 if is_last else 0,
+        1 if align_end else 0,
+        ctypes.byref(out_ptr), ctypes.byref(out_len), _ptr(ring_out))
+    if rc != 0:
+        raise ValueError(_ENC_ERRORS.get(rc, f"serialize error {rc}"))
+    try:
+        return (ctypes.string_at(out_ptr, out_len.value),
+                ring_out.astype(np.int64))
+    finally:
+        lib.btpu_free(out_ptr)

@@ -1,0 +1,170 @@
+"""Build, bind and launch the hand-written Hopper kernels of csrc/.
+
+Each `csrc/<name>.cu` compiles with nvcc into its own shared library
+with a plain C interface under `brotli_tpu_torch/_build/` at first use
+(all sources in parallel), and is bound with ctypes. A launch runs on
+PyTorch's current stream, allocates nothing itself, and the C side
+returns cudaGetLastError(); a non-zero code raises. LAUNCHES counts the
+launches of each kernel.
+
+nvcc is looked up only when a kernel is first needed, so the package
+imports on machines without the CUDA toolkit.
+"""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+SOURCES = ("suffix_min", "dp_scan")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+W = 64
+B = 4096
+
+LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0}
+
+_libs = {}
+_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "btt_suffix_min": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                       _P],
+    "btt_dp_scan": [_P, _P, _P, ctypes.c_int, _P],
+    "btt_dp_backtrack": [_P, _P, _P, ctypes.c_int, _P],
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not pathlib.Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
+                           "to build the kernels")
+    return nvcc
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    return _BUILD / f"lib{name}.so"
+
+
+def build(extra_flags=()) -> dict:
+    """Compile every stale kernel library, one nvcc per source, all
+    started together. Returns {source: compiler output} for the
+    sources it compiled; raises with the compiler's output on
+    failure."""
+    with _lock:
+        _BUILD.mkdir(exist_ok=True)
+        stale = [s for s in SOURCES
+                 if not _lib_path(s).exists() or
+                 _lib_path(s).stat().st_mtime <
+                 (_CSRC / f"{s}.cu").stat().st_mtime]
+        if not stale:
+            return {}
+        nvcc = _nvcc()
+        procs = {s: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(_lib_path(s)),
+             str(_CSRC / f"{s}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s in stale}
+        logs = {s: p.communicate()[0] for s, p in procs.items()}
+        bad = [s for s, p in procs.items() if p.returncode != 0]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" +
+                               "\n".join(logs[s] for s in bad))
+        return logs
+
+
+def _fn(source: str, symbol: str):
+    with _lock:
+        lib = _libs.get(source)
+    if lib is None:
+        build()
+        with _lock:
+            lib = _libs.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(str(_lib_path(source)))
+                for sym, args in _SIGNATURES.items():
+                    if hasattr(lib, sym):
+                        getattr(lib, sym).argtypes = args
+                        getattr(lib, sym).restype = ctypes.c_int
+                _libs[source] = lib
+    return getattr(lib, symbol)
+
+
+def _check(t: torch.Tensor, name: str, ndim: int) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name}: expected a CUDA tensor, got "
+                           f"{t.device}")
+    if t.dtype != torch.int32 or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous int32 tensor of "
+                         f"{ndim} dims, got {t.dtype} {tuple(t.shape)}")
+
+
+def _launch(source, symbol, device, *args) -> None:
+    fn = _fn(source, symbol)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
+
+
+def suffix_min(pd_flat, cs_flat, copyq):
+    """K1 on the card: (nslots, n) int32 slots -> (n, 2W) int32."""
+    _check(pd_flat, "pd_flat", 2)
+    _check(cs_flat, "cs_flat", 2)
+    _check(copyq, "copyq", 1)
+    nslots, n = pd_flat.shape
+    if cs_flat.shape != pd_flat.shape or copyq.shape[0] < W or \
+            not 2 <= nslots <= 32:
+        raise ValueError("suffix_min: bad shapes")
+    out = torch.empty((n, 2 * W), dtype=torch.int32, device=pd_flat.device)
+    _launch("suffix_min", "btt_suffix_min", pd_flat.device,
+            pd_flat.data_ptr(), cs_flat.data_ptr(), copyq.data_ptr(),
+            out.data_ptr(), nslots, n)
+    LAUNCHES["suffix_min"] += 1
+    return out
+
+
+def dp_scan(mp, litq):
+    """K3 on the card: (n, 2W) rows + (n,) literal costs -> int32
+    paymat (n // B, B + 1)."""
+    _check(mp, "mp", 2)
+    _check(litq, "litq", 1)
+    n = mp.shape[0]
+    if mp.shape[1] != 2 * W or n % B or litq.shape[0] != n:
+        raise ValueError("dp_scan: bad shapes")
+    nb = n // B
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=mp.device)
+    _launch("dp_scan", "btt_dp_scan", mp.device, mp.data_ptr(),
+            litq.data_ptr(), paymat.data_ptr(), nb)
+    LAUNCHES["dp_scan"] += 1
+    return paymat
+
+
+def dp_backtrack(paymat):
+    """K4 on the card: paymat (nb, B + 1) -> int32 (B, nb) global match
+    starts (-1 = none) and payloads."""
+    _check(paymat, "paymat", 2)
+    nb = paymat.shape[0]
+    if paymat.shape[1] != B + 1:
+        raise ValueError("dp_backtrack: bad shapes")
+    gsrc = torch.empty((B, nb), dtype=torch.int32, device=paymat.device)
+    vals = torch.empty((B, nb), dtype=torch.int32, device=paymat.device)
+    _launch("dp_scan", "btt_dp_backtrack", paymat.device,
+            paymat.data_ptr(), gsrc.data_ptr(), vals.data_ptr(), nb)
+    LAUNCHES["dp_backtrack"] += 1
+    return gsrc, vals
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -1,0 +1,847 @@
+"""Device optimal-parse DP (q10/q11), the PyTorch/CUDA counterpart of
+brotli_tpu.ops.optimal_jax's v3 pipeline.
+
+Per segment of the input (4 MiB by default, padded to a 2 or 4 MiB
+bucket) the device runs four stages:
+
+  1. candidate edges by tiered sort-carry (`_edges_slots`): the k
+     nearest prior occurrences sharing a 4- or 8-byte prefix, their
+     capped match lengths, plus continuation edges inside the seed
+     parse's long matches and an atomic static-dictionary slot;
+  2. the suffix-min pre-reduction (K1, csrc/suffix_min.cu): the 29 edge
+     slots collapse into a dense per-position (cost, payload) row over
+     the W window columns;
+  3. the wavefront scan (K3, csrc/dp_scan.cu): per DP block of B
+     positions, 4096 dependent relaxation steps over a W-column window;
+  4. the backtrack (K4, csrc/dp_scan.cu) and a stable sort that
+     compacts the chosen match starts.
+
+Every kernel has a plain PyTorch version here with the same contract;
+its wrapper runs the plain version for a tensor on the CPU and the
+kernel for a tensor on the card. All arithmetic is int32 (int64 where
+the JAX code used uint32 lanes, see utils/u32.py), so both are bit
+equal to the JAX package.
+
+The host side -- the native seed parse, cost tables, dictionary probe,
+segment prep, collect and span emission -- is copied from
+optimal_jax.py with its environment knobs fixed at their defaults.
+"""
+
+import numpy as np
+import torch
+
+from .. import native
+from ..enc import bitstream
+from ..enc.matcher import (add_dictionary_matches, matches_to_commands,
+                           split_matches_at)
+from ..enc.optimal import CMD_BASE_Q, QB, _coalesce, bridge_matches
+from ..format import constants as C
+from ..format import context as ctx
+from ..format import prefix
+from ..utils import trace, u32
+from ..utils.device import resolve
+from . import kernels
+
+HASH_MUL = 0x1E35A7BD
+HASH_MUL2 = 0x9E3779B1
+CAPD = 32         # candidate match-length cap (8 carried words)
+W = 64            # DP window: max edge length W-1
+B = 4096          # DP block size (hard parse boundary)
+# hierarchical candidate levels (prefix bytes, occurrence ranks)
+LEVELS = (
+    (4, tuple(range(1, 13)) + (16,)),
+    (8, tuple(range(1, 9)) + (16, 32, 64, 128, 256, 512)),
+)
+SEG_V3 = 1 << 22          # segment size
+BUCKETS_V3 = [1 << 21, 1 << 22]
+CAPM_DIV = 8              # batched-collect match cap = bucket // 8
+
+# the JAX package's environment defaults, fixed
+COST_SAMPLE = 1 << 22     # BROTLI_TPU_COST_SAMPLE
+LIT_SURCHARGE = 1.1       # BROTLI_TPU_LIT_SURCHARGE
+INS_SCALE = 1.0           # BROTLI_TPU_INS_SCALE
+CMD_EXTRA = 1.0           # BROTLI_TPU_CMD_EXTRA
+SEED_Q = 9                # BROTLI_TPU_SEED_Q
+
+EDGE_INF = 1 << 28        # no edge in a slot (K1's INF)
+NO_EDGE = 1 << 29         # no edge reaches a window column
+SCAN_INF = 1 << 30        # unreached window cell (K3's INF)
+BIGD = 0x7FFFFFFF         # K1's "no payload" marker
+MASK25 = (1 << 25) - 1
+
+
+def _bucket_v3(n: int) -> int:
+    for b in BUCKETS_V3:
+        if n <= b:
+            return b
+    return BUCKETS_V3[-1]
+
+
+# ---------------------------------------------------------------------
+# device side: edges
+# ---------------------------------------------------------------------
+
+def _shift_up(x, k, fill):
+    return torch.cat([torch.full((k,), fill, dtype=x.dtype,
+                                 device=x.device), x[:-k]])
+
+
+def _tz_bytes_u32(x):
+    b0 = (x & 0xFF) == 0
+    b1 = (x & 0xFFFF) == 0
+    b2 = (x & 0xFFFFFF) == 0
+    b3 = x == 0
+    return (b0.to(torch.int64) + b1.to(torch.int64) + b2.to(torch.int64)
+            + b3.to(torch.int64))
+
+
+def _dist_cost_q(dist, dist_sym_bits_q):
+    """Quantized explicit-distance cost: symbol bits + extra bits
+    (npostfix = ndirect = 0)."""
+    d = torch.clamp(dist.to(torch.int64), min=1) - 1
+    v = (d + 4) >> 2
+    nbits = u32.bit_length(v | 1)
+    half = ((d + 4 - (torch.full_like(nbits, 2) << nbits)) >> nbits) & 1
+    sym = torch.clamp(16 + (((nbits - 1) << 1) | half), 0, 63)
+    return dist_sym_bits_q[sym].to(torch.int64) + nbits * QB
+
+
+def _level_candidates(w, pos, npos, max_distance, ranks, hval):
+    """One prefix level's rank-r candidates via sort-carry: a stable
+    sort on the packed key hash<<14 | pos>>9 (the key is not unique, so
+    only a stable sort gives the JAX package's rank-k neighbours).
+    Returns len(ranks) packed (len<<25 | dist) arrays in position
+    order."""
+    n = pos.shape[0]
+    key = torch.where(pos < npos, (hval << 14) | (pos >> 9),
+                      (1 << 31) | pos)
+    key_s, order = torch.sort(key, stable=True)
+    pos_s = order
+    w_s = [x[order] for x in w]
+    h_s = u32.shr(key_s, 14)  # padding rows keep the high bit: no match
+    live = key_s < (1 << 31)
+    guard = torch.clamp(npos + 3 - pos_s, min=0)
+    cand = []
+    for k in ranks:
+        same = (h_s == _shift_up(h_s, k, u32.MASK32)) & live
+        dist = pos_s - _shift_up(pos_s, k, -1)
+        valid = same & (dist > 0) & (dist <= max_distance)
+        mlen = torch.zeros(n, dtype=torch.int64, device=pos.device)
+        alive = valid
+        for ws in w_s:
+            x = ws ^ _shift_up(ws, k, 0)
+            mlen = mlen + torch.where(alive, _tz_bytes_u32(x), 0)
+            alive = alive & (x == 0)
+        mlen = torch.minimum(mlen, guard)
+        mlen = torch.where(valid & (mlen >= 2), mlen, 0)
+        packed_s = (mlen << 25) | torch.where(mlen > 0, dist, 0)
+        packed = torch.empty_like(packed_s)
+        packed[order] = packed_s  # back to position order
+        cand.append(packed)
+    return cand
+
+
+def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
+                 seed_pos, seed_len, seed_dist):
+    """Per-slot edges: tiered sort-carry candidate levels + seed
+    continuation edges, flat (nslots, n) layout, block-boundary
+    clipped. Returns int32 (ls_flat, cs_flat, ds_flat, dist_fill)."""
+    n = data.shape[0]
+    dev = data.device
+    d = data.to(torch.int64)
+    # torch.roll wraps at the segment end like jnp.roll; the npos + 3
+    # guard in _level_candidates relies on that wrap
+    w0 = (d | (torch.roll(d, -1) << 8) | (torch.roll(d, -2) << 16) |
+          (torch.roll(d, -3) << 24))
+    w = [w0] + [torch.roll(w0, -4 * r) for r in range(1, CAPD // 4)]
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    cand = []
+    for plen, ranks in LEVELS:
+        if plen == 4:
+            hval = u32.shr(u32.mul(w[0], HASH_MUL), 15)
+        else:
+            hval = u32.shr(u32.mul(w[0], HASH_MUL) ^
+                           u32.mul(w[1], HASH_MUL2), 15)
+        cand.extend(_level_candidates(
+            w, pos, max(npos - (plen - 4), 0), max_distance, ranks, hval))
+
+    # continuation edges from seed matches: scatter (end, dist) at each
+    # match start, then fill forward with the latest non-zero value
+    # (seed matches come from a parse, so they never overlap)
+    sp = torch.clamp(seed_pos, 0, n - 1)
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    ends = zero.scatter_reduce(0, sp, torch.where(
+        seed_len > 0, seed_pos + seed_len, 0), "amax", include_self=True)
+    sdist = zero.scatter_reduce(0, sp, torch.where(
+        seed_len > 0, seed_dist, 0), "amax", include_self=True)
+    end_fill = _fill_last_positive(ends)
+    dist_fill = _fill_last_positive(sdist)
+    cont_len = torch.clamp(end_fill - pos, 0, W - 1)
+    cont_dist = torch.where(cont_len >= 2, dist_fill, 0)
+
+    slots_len, slots_cost, slots_dist = [], [], []
+    for cp in cand:
+        le = torch.clamp(cp >> 25, max=W - 1)
+        di = cp & MASK25
+        cost = _dist_cost_q(di, dist_sym_bits_q)
+        slots_len.append(le.to(torch.int32))
+        slots_cost.append(torch.where(le >= 2, cost, EDGE_INF).to(
+            torch.int32))
+        slots_dist.append(di.to(torch.int32))
+    ccost = _dist_cost_q(cont_dist, dist_sym_bits_q)
+    slots_len.append(torch.where(cont_dist > 0, cont_len, 0).to(
+        torch.int32))
+    slots_cost.append(torch.where((cont_len >= 2) & (cont_dist > 0),
+                                  ccost, EDGE_INF).to(torch.int32))
+    slots_dist.append(cont_dist.to(torch.int32))
+    ls_flat = torch.stack(slots_len)
+    cs_flat = torch.stack(slots_cost)
+    ds_flat = torch.stack(slots_dist)
+    # clip edges that would cross the block boundary; kill sub-2 stubs
+    room = (B - pos % B).to(torch.int32)[None, :]
+    ls_flat = torch.minimum(ls_flat, room)
+    cs_flat = torch.where(ls_flat >= 2, cs_flat, EDGE_INF)
+    return ls_flat, cs_flat, ds_flat, dist_fill.to(torch.int32)
+
+
+def _fill_last_positive(x):
+    """out[i] = the last x[j] > 0 with j <= i, else x[0] (the JAX
+    associative_scan with where(b > 0, b, a))."""
+    idx = torch.arange(x.shape[0], device=x.device)
+    src = torch.cummax(torch.where(x > 0, idx, 0), dim=0).values
+    return x[src]
+
+
+def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
+                   dist_sym_bits_q, seed_pos, seed_len, seed_dist,
+                   dict_pos, dict_pay, seg_base):
+    """Stage 1 of a segment: the 29 edge slots (27 candidate ranks, the
+    atomic dictionary slot, the continuation slot) as int32 (29, n)
+    `pd_flat` (len<<25 | dist) and `cs_flat` (distance cost), and the
+    int32 (n,) per-position literal cost."""
+    n = data.shape[0]
+    dev = data.device
+    ls_flat, cs_flat, ds_flat, _ = _edges_slots(
+        data, npos, max_distance, dist_sym_bits_q, seed_pos, seed_len,
+        seed_dist)
+    pd_flat = (ls_flat << 25) | torch.where(ls_flat >= 2, ds_flat, 0)
+    # dict slot row (inserted before the continuation slot)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    val = dict_pay.to(torch.int64)
+    dpp = torch.clamp(dict_pos.to(torch.int64), 0, n - 1)
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    dls = zero.scatter_reduce(0, dpp, torch.where(
+        val > 0, (val >> 22) & 0x3FF, 0), "amax", include_self=True)
+    doff = zero.scatter_reduce(0, dpp, torch.where(
+        val > 0, val & ((1 << 17) - 1), 0), "amax", include_self=True)
+    dls = torch.where(dls <= B - pos % B, dls, 0)  # atomic: no split
+    maxd_at = torch.clamp(seg_base + pos, max=max_distance)
+    ddist = torch.where(dls >= 2, maxd_at + 1 + doff, 0)
+    dcost = torch.where(dls >= 2, _dist_cost_q(ddist, dist_sym_bits_q),
+                        EDGE_INF)
+    pdD = (dls << 25) | torch.where(dls >= 2, ddist, 0)
+    pd_flat = torch.cat([pd_flat[:-1], pdD.to(torch.int32)[None],
+                         pd_flat[-1:]]).contiguous()
+    cs_flat = torch.cat([cs_flat[:-1], dcost.to(torch.int32)[None],
+                         cs_flat[-1:]]).contiguous()
+    # per-position literal cost: ctx = lut0[p1]|lut1[p2], then
+    # bits[ctx, byte] (u8 at 1/8 bit -> 1/16 units)
+    d = data.to(torch.int64)
+    p1 = _shift_up(d, 1, 0)
+    p2 = _shift_up(d, 2, 0)
+    cid = ctx_tab[(p1 << 8) | p2].to(torch.int64)
+    litq = (bits_tab[(cid << 8) | d] * 2).to(torch.int32)
+    return pd_flat, cs_flat, litq
+
+
+# ---------------------------------------------------------------------
+# device side: the three kernels and their plain versions
+# ---------------------------------------------------------------------
+
+def suffix_min_plain(pd_flat, cs_flat, copyq, chunk=1 << 18):
+    """K1, plain version of optimal_jax._suffix_kernel, position-major:
+    (nslots, n) slots -> int32 (n, 2W) rows [M | P]. M[c] = min slot
+    cost over slots with lo <= c <= len, plus copyq[c] (NO_EDGE when
+    none); P[c] = (c << 25) | the argmin's distance (0 when none).
+    Strict < in slot order: the lowest slot wins ties. Slot nslots-2
+    (dictionary) is atomic: lo = len. Processed in position chunks
+    to bound memory; the result does not depend on the chunking."""
+    nslots, n = pd_flat.shape
+    dev = pd_flat.device
+    out = torch.empty((n, 2 * W), dtype=torch.int32, device=dev)
+    col = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    cq = copyq[:W].to(torch.int32)[None, :]
+    for lo in range(0, n, chunk):
+        pd = pd_flat[:, lo:lo + chunk]
+        cs = cs_flat[:, lo:lo + chunk]
+        m = pd.shape[1]
+        acc = torch.full((m, W), EDGE_INF, dtype=torch.int32, device=dev)
+        pay = torch.full((m, W), BIGD, dtype=torch.int32, device=dev)
+        for s in range(nslots):
+            ls = (pd[s] >> 25)[:, None]
+            ds = (pd[s] & MASK25)[:, None]
+            low = torch.clamp(ls, min=2) if s == nslots - 2 else 2
+            hit = (col <= ls) & (col >= low)
+            v = torch.where(hit, cs[s][:, None], EDGE_INF)
+            upd = v < acc
+            acc = torch.where(upd, v, acc)
+            pay = torch.where(upd, ds, pay)
+        out[lo:lo + m, :W] = torch.where(acc < EDGE_INF, acc + cq, NO_EDGE)
+        out[lo:lo + m, W:] = torch.where(pay != BIGD, (col << 25) | pay, 0)
+    return out
+
+
+def suffix_min(pd_flat, cs_flat, copyq):
+    """K1: the plain version on the CPU, csrc/suffix_min.cu on the
+    card."""
+    if pd_flat.device.type == "cpu":
+        return suffix_min_plain(pd_flat, cs_flat, copyq)
+    return kernels.suffix_min(pd_flat, cs_flat, copyq)
+
+
+def dp_scan_plain(mp, litq):
+    """K3, plain version of optimal_jax._scan_math_v3 (default branch):
+    mp (n, 2W) rows from K1 and litq (n,) literal costs, both
+    position-major; returns int32 paymat (nb, B+1) with the final
+    payload of every in-block position and of the block end. Per step:
+    literal relax into column 1 first (strict <, so a literal beats a
+    match on ties), then the min-merge of cost_i + M into the window,
+    then the shift."""
+    n = mp.shape[0]
+    nb = n // B
+    dev = mp.device
+    mpv = mp.view(nb, B, 2 * W)
+    lq = litq.view(nb, B)
+    F = torch.full((nb, W), SCAN_INF, dtype=torch.int32, device=dev)
+    F[:, 0] = 0
+    P = torch.zeros((nb, W), dtype=torch.int32, device=dev)
+    inf_col = torch.full((nb, 1), SCAN_INF, dtype=torch.int32, device=dev)
+    zero_col = torch.zeros((nb, 1), dtype=torch.int32, device=dev)
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=dev)
+    for i in range(B):
+        cost_i = F[:, 0].clone()
+        paymat[:, i] = P[:, 0]
+        lv = cost_i + lq[:, i]
+        upd = lv < F[:, 1]
+        F[:, 1] = torch.where(upd, lv, F[:, 1])
+        P[:, 1] = torch.where(upd, 0, P[:, 1])
+        minv = cost_i[:, None] + mpv[:, i, :W]
+        better = minv < F
+        F = torch.cat([torch.where(better, minv, F)[:, 1:], inf_col], 1)
+        P = torch.cat([torch.where(better, mpv[:, i, W:], P)[:, 1:],
+                       zero_col], 1)
+    paymat[:, B] = P[:, 0]
+    return paymat
+
+
+def dp_scan(mp, litq):
+    """K3: the plain version on the CPU, csrc/dp_scan.cu on the card."""
+    if mp.device.type == "cpu":
+        return dp_scan_plain(mp, litq)
+    return kernels.dp_scan(mp, litq)
+
+
+def dp_backtrack_plain(paymat):
+    """K4, plain version of the backtrack of optimal_jax._finish_math:
+    walk each block from B over exactly B steps (the step is 0 at
+    position 0). Returns int32 (B, nb) global match starts (-1 where
+    the step is a literal or a no-op) and the payload read at each
+    step, in the JAX scan's (step, block) layout."""
+    nb = paymat.shape[0]
+    dev = paymat.device
+    bidx = torch.arange(nb, device=dev)
+    posv = torch.full((nb,), B, dtype=torch.int32, device=dev)
+    srcs = torch.empty((B, nb), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, nb), dtype=torch.int32, device=dev)
+    for k in range(B):
+        v = paymat[bidx, posv.long()]
+        ln = v >> 25
+        stepb = torch.where(posv > 0, torch.clamp(ln, min=1), 0)
+        src = posv - stepb
+        srcs[k] = torch.where((ln >= 2) & (posv > 0), src, -1)
+        vals[k] = v
+        posv = src
+    gsrc = torch.where(srcs >= 0, srcs + (bidx * B).to(torch.int32)[None],
+                       -1)
+    return gsrc, vals
+
+
+def dp_backtrack(paymat):
+    """K4: the plain version on the CPU, csrc/dp_scan.cu on the
+    card."""
+    if paymat.device.type == "cpu":
+        return dp_backtrack_plain(paymat)
+    return kernels.dp_backtrack(paymat)
+
+
+def compact(gsrc, vals, npos):
+    """The stable compaction after the backtrack: match starts in
+    position order (key 0xFFFFFFFF for invalid entries, which keep
+    their scan order). Returns (count, stacked) with stacked the int64
+    (2, n//2) [start; payload] table holding uint32 values."""
+    n = gsrc.numel()
+    g = gsrc.reshape(-1).to(torch.int64)
+    valid = (g >= 0) & (g < npos)
+    key = torch.where(valid, g, u32.MASK32)
+    pos_c, order = torch.sort(key, stable=True)
+    pay_c = vals.reshape(-1).to(torch.int64)[order] & u32.MASK32
+    half = n // 2
+    return valid.sum(), torch.stack([pos_c[:half], pay_c[:half]])
+
+
+def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
+                  dist_sym_bits_q, seed_pos, seed_len, seed_dist,
+                  dict_pos, dict_pay, seg_base, *, capm):
+    """One segment's optimal parse (counterpart of
+    optimal_jax._dp_v3_impl): edges -> K1 -> K3 -> K4 -> compaction.
+
+    Returns (packed, stacked): packed is int64 (2, capm + 8) holding
+    uint32 values, with the match count at [0, 0] and matches at
+    [:, 8 : 8 + capm]; stacked is the uncapped (2, n//2) compaction,
+    fetched only on overflow."""
+    pd_flat, cs_flat, litq = segment_tables(
+        data, npos, max_distance, bits_tab, ctx_tab, dist_sym_bits_q,
+        seed_pos, seed_len, seed_dist, dict_pos, dict_pay, seg_base)
+    mp = suffix_min(pd_flat, cs_flat, copyq)
+    del pd_flat, cs_flat
+    paymat = dp_scan(mp, litq)
+    del mp
+    gsrc, vals = dp_backtrack(paymat)
+    count, stacked = compact(gsrc, vals, npos)
+    packed = torch.zeros((2, capm + 8), dtype=torch.int64,
+                         device=data.device)
+    packed[0, 0] = count
+    packed[:, 8:8 + capm] = stacked[:, :capm]
+    return packed, stacked
+
+
+# ---------------------------------------------------------------------
+# host side (copied from optimal_jax.py)
+# ---------------------------------------------------------------------
+
+def _seg_seed_edges(seeds_list, lo, hi, cap):
+    """Seed matches intersected with segment [lo, hi) (a suffix of an
+    LZ match is a match at the same distance, so a giant match spanning
+    several segments seeds each of them); fixed pad size. Short seeds
+    are redundant with the segment-local candidates."""
+    spos_parts, slen_parts, sdist_parts = [], [], []
+    for (qm, ql, qd, qf) in seeds_list:
+        start = np.maximum(qm, lo)
+        end = np.minimum(qm + ql, hi)
+        in_seg = (end - start >= 16) & (qf < 2)
+        spos_parts.append((start[in_seg] - lo).astype(np.int32))
+        slen_parts.append((end - start)[in_seg].astype(np.int32))
+        sdist_parts.append(qd[in_seg].astype(np.int32))
+    spos = np.concatenate(spos_parts)
+    slen = np.concatenate(slen_parts)
+    sdist = np.concatenate(sdist_parts)
+    if len(spos) > cap:  # keep the longest seeds
+        keep = np.argsort(slen)[::-1][:cap]
+        keep.sort()
+        spos, slen, sdist = spos[keep], slen[keep], sdist[keep]
+    pad = cap - len(spos)
+    return (np.pad(spos, (0, pad)), np.pad(slen, (0, pad)),
+            np.pad(sdist, (0, pad)))
+
+
+def _dict_probe_global(arr, seeds_list, base, max_distance):
+    """One native static-dictionary probe over the whole input
+    (seed-gated; ~1% of positions). Returns (positions, payloads,
+    word lengths). When the hits overflow the probe's output cap (one
+    per 8 bytes: text made of dictionary words), the probe fails and
+    the DP runs without dictionary edges, as in the JAX package."""
+    with trace.stage("dp.dict-probe"):
+        qm, ql = seeds_list[0][0], seeds_list[0][1]
+        try:
+            dpos_g, dpay_g = native.dict_probe_all(
+                np.ascontiguousarray(arr).tobytes(), qm, ql, base,
+                max_distance)
+        except ValueError:
+            dpos_g = dpay_g = np.zeros(0, np.uint32)
+    dwlen_g = ((dpay_g >> 17) & 0x1F).astype(np.int64)
+    return dpos_g, dpay_g, dwlen_g
+
+
+def _prep_segment_v3(arr, seeds_list, dpos_g, dpay_g, lo, hi, b):
+    """Host-side small inputs of one DP segment (seed continuation +
+    dictionary edges; the data itself ships once for the whole
+    buffer)."""
+    spos, slen, sdist = _seg_seed_edges(seeds_list, lo, hi, b // 128)
+    # dict edges inside [lo, hi) whose word fits the segment
+    douts = (dpay_g >> 22).astype(np.int64)
+    in_seg = (dpos_g >= lo) & (dpos_g + douts <= hi)
+    dp_loc = (dpos_g[in_seg].astype(np.int64) - lo).astype(np.int32)
+    dp_val = dpay_g[in_seg].astype(np.int32)
+    cap_d = b // 64
+    if len(dp_loc) > cap_d:  # keep the longest words
+        keep = np.argsort(dp_val >> 22)[::-1][:cap_d]
+        keep.sort()
+        dp_loc, dp_val = dp_loc[keep], dp_val[keep]
+    pad = cap_d - len(dp_loc)
+    return (max(hi - lo - 3, 0), spos, slen, sdist,
+            np.pad(dp_loc, (0, pad)), np.pad(dp_val, (0, pad)))
+
+
+def _slice_seg(dev_big, lo, b):
+    """The segment [lo, lo + b) of the uploaded buffer, with the start
+    clamped so the slice fits (lax.dynamic_slice semantics)."""
+    lo = max(min(lo, dev_big.shape[0] - b), 0)
+    return dev_big[lo:lo + b]
+
+
+def upload_input(arr, n, device):
+    """One host-to-device copy of the whole bucket-padded input;
+    segments are slices of it."""
+    tail = n - (n // SEG_V3) * SEG_V3
+    pad_to = (n // SEG_V3) * SEG_V3 + (_bucket_v3(tail) if tail else 0)
+    big = np.zeros(max(pad_to, BUCKETS_V3[0]), np.uint8)
+    big[:n] = arr[:n]
+    return torch.from_numpy(big).to(device)
+
+
+def device_tables(tables, device):
+    """The cost tables as device tensors: (bits_tab, ctx_tab, copyq,
+    dist_sym_bits_q)."""
+    bits_tab, copyq, distq, ctx_tab = tables
+    return (torch.from_numpy(bits_tab.astype(np.int32).reshape(-1)).to(
+                device),
+            torch.from_numpy(ctx_tab.astype(np.int32)).to(device),
+            torch.from_numpy(copyq[:W].astype(np.int32)).to(device),
+            torch.from_numpy(distq.astype(np.int32)).to(device))
+
+
+def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device):
+    """Per-segment host prep as device tensors: (npos, seed_pos,
+    seed_len, seed_dist, dict_pos, dict_pay)."""
+    dpos_g, dpay_g, _ = dict_g
+    with trace.stage("dp.seg-prep"):
+        npos, *rest = _prep_segment_v3(arr, seeds_list, dpos_g, dpay_g,
+                                       lo, hi, b)
+    return (npos,) + tuple(
+        torch.from_numpy(a.astype(np.int64)).to(device) for a in rest)
+
+
+def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big,
+                 base=0, dict_g=None, lo_start=0):
+    """Run every segment's DP from `lo_start` (device work is queued
+    asynchronously; nothing waits for it here). Returns (handles,
+    dict_table): dict_table = (global hit positions, word lengths) for
+    flag recovery at collect time. `dict_g`: an already computed
+    _dict_probe_global result."""
+    dev = dev_big.device
+    bits_tab, ctx_tab, copyq, distq = device_tables(tables, dev)
+    if dict_g is None:
+        dict_g = _dict_probe_global(arr, seeds_list, base, max_distance)
+    handles = []
+    for lo in range(lo_start, n, SEG_V3):
+        hi = min(lo + SEG_V3, n)
+        b = _bucket_v3(hi - lo)
+        capm = b // CAPM_DIV
+        npos, spos, slen, sdist, dloc, dval = segment_inputs(
+            arr, seeds_list, dict_g, lo, hi, b, dev)
+        with trace.stage("dp.dispatch"):
+            packed, full = dp_v3_segment(
+                _slice_seg(dev_big, lo, b), npos, max_distance, bits_tab,
+                ctx_tab, copyq, distq, spos, slen, sdist, dloc, dval,
+                lo + base, capm=capm)
+        handles.append((lo, capm, packed, full))
+    dpos_g, _, dwlen_g = dict_g
+    return handles, (dpos_g.astype(np.int64), dwlen_g)
+
+
+def _to_u32(t):
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def _collect_v3(handles, dict_table, max_distance, base=0):
+    """One stacked device-to-host copy per packed shape, sliced to half
+    the match cap (the count-first layout keeps the count inside the
+    slice; rare overflows pay a second fetch). Matches whose distance
+    exceeds the window at their position are the DP's dictionary
+    edges; their word-length flags (2000 + wlen) come back from the
+    host probe table."""
+    dpos_g, dwlen_g = dict_table
+    groups = {}
+    for i, (_lo, capm, packed, _full) in enumerate(handles):
+        groups.setdefault((tuple(packed.shape), capm), []).append(i)
+    fetched = [None] * len(handles)
+    with trace.stage("dp.fetch"):
+        for (_shape, capm), idxs in groups.items():
+            k = 8 + capm // 2
+            host = _to_u32(torch.stack([handles[i][2][:, :k]
+                                        for i in idxs]))
+            for j, i in enumerate(idxs):
+                fetched[i] = host[j]
+    all_m, all_l, all_d, all_f = [], [], [], []
+    for (lo, capm, packed, full), hp in zip(handles, fetched):
+        cnt = int(hp[0, 0])
+        if cnt > capm:  # rare overflow: fetch the uncapped compaction
+            hostf = _to_u32(full[:, :cnt])
+            pos_c, pay_c = hostf[0], hostf[1]
+        elif cnt > capm // 2:  # middle tier: fetch the full packed
+            hostp = _to_u32(packed)
+            pos_c, pay_c = hostp[0, 8:8 + cnt], hostp[1, 8:8 + cnt]
+        else:
+            pos_c, pay_c = hp[0, 8:8 + cnt], hp[1, 8:8 + cnt]
+        if cnt == 0:
+            continue
+        mm = pos_c.astype(np.int64) + lo
+        ml = (pay_c >> 25).astype(np.int64)
+        md = (pay_c & np.uint32((1 << 25) - 1)).astype(np.int64)
+        mf = np.zeros(len(mm), np.int64)
+        isd = md > np.minimum(mm + base, max_distance)
+        if isd.any() and len(dpos_g):
+            di = np.searchsorted(dpos_g, mm[isd])
+            di = np.minimum(di, len(dpos_g) - 1)
+            found = dpos_g[di] == mm[isd]
+            w = np.where(found, 2000 + dwlen_g[di], 0)
+            mf[np.flatnonzero(isd)] = w
+        # a dict-flagged match whose probe lookup failed is
+        # unserializable -- drop it (its span falls back to literals)
+        keep = ~isd | (mf >= 2000)
+        all_m.append(mm[keep])
+        all_l.append(ml[keep])
+        all_d.append(md[keep])
+        all_f.append(mf[keep])
+    return all_m, all_l, all_d, all_f
+
+
+_CTX_TAB2 = None  # (65536,) uint8: lut0[p1] | lut1[p2], UTF8 mode
+
+
+def _ctx_tab2() -> np.ndarray:
+    global _CTX_TAB2
+    if _CTX_TAB2 is None:
+        lut = ctx.context_lut(2)
+        p1 = np.arange(256, dtype=np.int64)
+        _CTX_TAB2 = (lut[0][p1][:, None] |
+                     lut[1][p1][None, :]).astype(np.uint8).reshape(-1)
+    return _CTX_TAB2
+
+
+def _cost_tables(data: np.ndarray, seed):
+    """Host-side cost tables from the seed parse (the lit_table=True
+    branch of optimal_jax._cost_tables): the quantized (64, 256)
+    context-model literal bits, the per-length copy cost, the 64
+    distance-symbol costs and the (256*256,) p1p2 -> context lookup."""
+    m, lens, dists, flags = seed
+    n = len(data)
+    # table statistics come from a bounded sample of the seed parse;
+    # replay keeps whole matches only, literal coverage clips instead
+    if n > COST_SAMPLE:
+        _k = (m + lens) <= COST_SAMPLE
+        sm, sl = m[_k], lens[_k]
+        sd, sf = dists[_k], flags[_k]
+        cm_, cl_ = m[m < COST_SAMPLE], lens[m < COST_SAMPLE]
+        sdata, sn = data[:COST_SAMPLE], COST_SAMPLE
+    else:
+        sm, sl, sd, sf = m, lens, dists, flags
+        cm_, cl_ = m, lens
+        sdata, sn = data, n
+    covered = np.zeros(sn + 1, np.int16)
+    np.add.at(covered, np.minimum(cm_, sn), np.int16(1))
+    np.add.at(covered, np.minimum(cm_ + cl_, sn), np.int16(-1))
+    is_lit = np.cumsum(covered[:sn], dtype=np.int32) == 0
+    lut = ctx.context_lut(2)
+    lp = np.flatnonzero(is_lit).astype(np.int32)
+    p1l = sdata[np.maximum(lp - 1, 0)].astype(np.int32)
+    p2l = sdata[np.maximum(lp - 2, 0)].astype(np.int32)
+    cidl = (lut[0][p1l] | lut[1][p2l]).astype(np.int32)
+    hist = np.bincount((cidl << 8) | sdata[lp],
+                       minlength=64 * 256)[:64 * 256].reshape(
+                           64, 256) + 1
+    bits = -np.log2(hist / hist.sum(axis=1, keepdims=True))
+
+    # copy-code + distance symbol costs
+    ccode, _, _ = bitstream._encode_values(
+        np.maximum(sl, 2), prefix.COPY_BASE, prefix.COPY_EXTRA)
+    cc_hist = np.bincount(ccode, minlength=24).astype(np.float64) + 0.2
+    cc_p = cc_hist / cc_hist.sum()
+    ins_share = 3.0
+    if len(sm) > 16:
+        prev_end = np.concatenate([[0], (sm + sl)[:-1]])
+        ins_lens = np.maximum(sm - prev_end, 0)
+        icode, _, _ = bitstream._encode_values(
+            ins_lens, prefix.INSERT_BASE, prefix.INSERT_EXTRA)
+        syms = bitstream._combine_codes(icode, ccode,
+                                        np.zeros(len(sm), bool))
+        jh = np.bincount(syms, minlength=704).astype(np.float64)
+        jp = jh / jh.sum()
+        joint_avg = float(-(jp[jh > 0] * np.log2(jp[jh > 0])).sum())
+        copy_avg = float(-(cc_p * np.log2(cc_p)).sum())
+        ins_share = max(joint_avg - copy_avg, 0.5) * INS_SCALE
+    cc_bits = -np.log2(cc_p) + ins_share
+
+    def copy_cost_q(ls):
+        lc = np.searchsorted(prefix.COPY_BASE, np.maximum(ls, 2),
+                             side="right") - 1
+        return ((cc_bits[lc] + prefix.COPY_EXTRA[lc]) * QB).astype(
+            np.int64)
+    # distance-symbol cost from the seed parse's actual emission (ring
+    # codes included): replay through plan_commands
+    if len(sm):
+        cmds = matches_to_commands(sm, sl, sd, sf, 0, sn)
+        plan, _ = bitstream.plan_commands(*cmds[:3], None, cmds[3])
+        dsym = plan["dist_syms"][plan["has_dist"]]
+        dh = np.bincount(dsym, minlength=64).astype(np.float64)[:64]
+    else:
+        dh = np.zeros(64, np.float64)
+    dh += 0.2
+    dist_sym_bits = -np.log2(dh / dh.sum())
+    litbits_q = np.clip(np.round(bits * LIT_SURCHARGE * QB / 2), 0,
+                        255).astype(np.uint8)  # (64, 256)
+    lens_all = np.arange(W)
+    copyq = (copy_cost_q(np.maximum(lens_all, 2)) +
+             int(CMD_EXTRA * CMD_BASE_Q)).astype(np.int32)
+    copyq[:2] = 1 << 28
+    dist_sym_bits_q = (dist_sym_bits * QB).astype(np.int32)
+    return litbits_q, copyq, dist_sym_bits_q, _ctx_tab2()
+
+
+def _seed_parse(arr: np.ndarray, max_distance: int, base: int):
+    """Greedy/lazy q9 seed parse for the DP by the native C matcher,
+    which needs base == 0 and a standard window (maxback == 2^lgwin -
+    16). The JAX package falls back to its device matcher otherwise;
+    that matcher is ROADMAP M6."""
+    lgwin = int(max_distance + 16).bit_length() - 1
+    if not (base == 0 and 10 <= lgwin <= 24 and
+            C.max_backward_distance(lgwin) == max_distance):
+        raise NotImplementedError(
+            "seed parse off the native matcher (ROADMAP M6)")
+    p, l, d = native.find_matches(np.ascontiguousarray(arr).tobytes(),
+                                  SEED_Q, lgwin)
+    z = np.zeros(len(p), np.int64)
+    return (p.astype(np.int64), l.astype(np.int64), d.astype(np.int64), z)
+
+
+def find_matches_optimal(data: np.ndarray, max_distance: int,
+                         base: int = 0, on_block=None, mb_size=None,
+                         device=None):
+    """Device q10/q11 parse: native seed -> host cost tables -> device
+    DP per segment -> coalesce + dictionary post-pass.
+
+    The first segment is dispatched early from a seed parse local to
+    its window, so the full-input seed and dictionary probe run while
+    the card works on it.
+
+    Streaming mode: with `on_block(mb_lo, mb_hi, matches)` set (and
+    `mb_size`), finished metablock spans are emitted as soon as their
+    segments are collected. Returns None in that mode, else the
+    (pos, len, dist, flag) int64 match arrays."""
+    dev = resolve(device)
+    n = len(data)
+    arr = np.asarray(data)
+    dev_big = upload_input(arr, n, dev)
+    handles0 = None
+    if n > SEG_V3 and base == 0:
+        with trace.stage("dp.seed1"):
+            seed1 = _seed_parse(arr[:SEG_V3], max_distance, base)
+        with trace.stage("dp.cost-tables1"):
+            tables1 = _cost_tables(arr[:SEG_V3], seed1)
+        dict1 = _dict_probe_global(arr[:SEG_V3], [seed1], base,
+                                   max_distance)
+        with trace.stage("dp.device"):
+            handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance,
+                                       tables1, [seed1], dev_big, base,
+                                       dict_g=dict1)
+    with trace.stage("dp.seed"):
+        seed = _seed_parse(arr, max_distance, base)
+    with trace.stage("dp.cost-tables"):
+        tables = _cost_tables(arr, seed)
+    with trace.stage("dp.device"):
+        handles, dict_table = _dispatch_v3(
+            arr, n, max_distance, tables, [seed], dev_big, base,
+            lo_start=SEG_V3 if handles0 else 0)
+        if handles0:
+            # merge segment 1 (dispatched early) + its dict probe's
+            # edges (flag recovery at collect needs every position
+            # either probe selected)
+            handles = handles0 + handles
+            dp0, _, dw0 = dict1
+            dpos_g, dwlen_g = dict_table
+            mp = np.concatenate([dp0.astype(np.int64), dpos_g])
+            mw = np.concatenate([dw0, dwlen_g])
+            order = np.argsort(mp, kind="stable")
+            mp, mw = mp[order], mw[order]
+            if len(mp):
+                keep = np.concatenate([[True], np.diff(mp) != 0])
+                mp, mw = mp[keep], mw[keep]
+            dict_table = (mp, mw)
+        if on_block is not None and SEG_V3 % mb_size == 0:
+            # stream: emit the first half's spans while the card
+            # computes the rest. Groups cover whole metablocks only
+            # when mb_size divides SEG_V3; otherwise fall through to
+            # the full collect + one _emit_spans(0, n) below
+            _stream_v3(arr, handles, dict_table, n, mb_size,
+                       max_distance, base, on_block)
+            return None
+        all_m, all_l, all_d, all_f = _collect_v3(
+            handles, dict_table, max_distance, base)
+    if not all_m:
+        z = np.zeros(0, np.int64)
+        if on_block is not None:
+            _emit_spans(arr, z, z, z, z, n, mb_size, max_distance, base,
+                        on_block)
+            return None
+        return z, z, z, z
+    m, lens, dists, flags = bridge_matches(arr, *_coalesce(
+        np.concatenate(all_m), np.concatenate(all_l),
+        np.concatenate(all_d), np.concatenate(all_f)))
+    if on_block is not None:
+        _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
+                    base, on_block)
+        return None
+    with trace.stage("dp.dict-post"):
+        return add_dictionary_matches(arr, m, lens, dists, flags,
+                                      max_distance, base)
+
+
+def _stream_v3(arr, handles, dict_table, n, mb_size, max_distance,
+               base, on_block):
+    """Chunked streaming collect: fetch the first half of the segments
+    and emit their spans (native serialization on the host worker)
+    while the card still computes the second half. Segment boundaries
+    are hard parse boundaries and mb_size divides SEG_V3, so each group
+    covers whole metablocks."""
+    half = (len(handles) + 1) // 2
+    z = np.zeros(0, np.int64)
+    for group in (handles[:half], handles[half:]):
+        if not group:
+            continue
+        glo = group[0][0]
+        ghi = min(group[-1][0] + SEG_V3, n)
+        am, al, ad, af = _collect_v3(group, dict_table, max_distance,
+                                     base)
+        if am:
+            gm, gl, gd, gf = bridge_matches(arr, *_coalesce(
+                np.concatenate(am), np.concatenate(al),
+                np.concatenate(ad), np.concatenate(af)))
+        else:
+            gm = gl = gd = gf = z
+        _emit_spans(arr, gm, gl, gd, gf, n, mb_size, max_distance,
+                    base, on_block, lo=glo, hi=ghi)
+
+
+def _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
+                base, on_block, lo=0, hi=None):
+    """Emit the finished parse as metablock spans ([lo, hi) restricts
+    to one collected group's span range)."""
+    pm, pl, pd, pf = m, lens, dists, flags
+    emitted = lo
+    if hi is None:
+        hi = n
+    while emitted < hi:
+        mb_hi = min(emitted + mb_size, n)
+        with trace.stage("dp.span-split"):
+            pm, pl, pd, pf = split_matches_at(
+                pm, pl, pd, pf, [mb_hi, n + 1])
+            take = pm < mb_hi
+            bm, bl, bd, bf = pm[take], pl[take], pd[take], pf[take]
+            pm, pl, pd, pf = (pm[~take], pl[~take], pd[~take],
+                              pf[~take])
+        with trace.stage("dp.dict-post"):
+            bm, bl, bd, bf = add_dictionary_matches(
+                arr[:mb_hi], bm, bl, bd, bf, max_distance, base,
+                active_from=emitted)
+        on_block(emitted, mb_hi, (bm, bl, bd, bf))
+        emitted = mb_hi
