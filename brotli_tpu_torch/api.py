@@ -1,7 +1,8 @@
 """Public API of the port: one-shot `compress` through the q10/q11
 device optimal-parse pipeline, `decompress` through the native
 decoder, and one `error` type (the brotli_tpu.api surface, without
-the streaming classes yet)."""
+the streaming classes yet). The q<=9 device encode is
+`parallel.shard.compress_sharded`."""
 
 import numpy as np
 
@@ -30,7 +31,10 @@ def compress(data, quality=11, lgwin=22, lgblock=0, device=None,
     n = len(raw)
     if quality < 10:
         raise NotImplementedError(
-            "quality <= 9 needs the device matcher (ROADMAP M6)")
+            "quality <= 9: the native one-shot encoder, and the device "
+            "matcher's route through the Python metablock writer "
+            "(ROADMAP M13; parallel.shard.compress_sharded runs the "
+            "device matcher)")
     if n < MIN_DEVICE_INPUT:
         raise NotImplementedError(
             "inputs under 256 KiB take the host tiers (ROADMAP M13)")

@@ -1,7 +1,8 @@
-"""RFC 7932 bitstream pieces the q11 device pipeline needs: the stream
+"""RFC 7932 bitstream pieces the device pipelines need: the stream
 header and uncompressed-metablock writers (the whole-input stored
-fallback) and the command planner the host cost tables replay the seed
-parse through. Copied from brotli_tpu.enc.bitstream.
+fallback), the command planner the host cost tables replay the seed
+parse through, and the distance ring after a command sequence (the
+entry ring of a shard). Copied from brotli_tpu.enc.bitstream.
 """
 
 import numpy as np
@@ -78,6 +79,23 @@ def _encode_values(values, base, extra):
 def initial_ring() -> np.ndarray:
     """Decoder ring at stream start, newest-first (RFC 7932 4)."""
     return np.array(C.INITIAL_DISTANCE_RB[::-1], dtype=np.int64)
+
+
+def ring_after(dists, flags, ring=None) -> np.ndarray:
+    """Distance ring state after a command sequence, without
+    serializing it (used to seed parallel shard encoders: the decoder's
+    ring crosses shard seams). Static-dict words (flag >= 2) never push;
+    consecutive equal distances collapse to one push."""
+    if ring is None:
+        ring = initial_ring()
+    ring = np.asarray(ring, dtype=np.int64)
+    cd = np.asarray(dists, dtype=np.int64)[np.asarray(flags) < 2]
+    cd = cd[cd > 0]
+    if len(cd) == 0:
+        return ring.copy()
+    keep = np.concatenate([[cd[0] != ring[0]], cd[1:] != cd[:-1]])
+    pv = np.concatenate([ring[::-1], cd[keep]])
+    return pv[:-5:-1].copy()
 
 
 def encode_distances_vec(d: np.ndarray, npostfix: int, ndirect: int):

@@ -1,6 +1,7 @@
-"""Match-array helpers of the q11 pipeline, copied from
-brotli_tpu.enc.matcher: the static-dictionary post-pass (native path
-only), metablock command planning and boundary splitting.
+"""Match-array helpers of the device pipelines, copied from
+brotli_tpu.enc.matcher: the serial extension of cap-hit matches, the
+static-dictionary post-pass (native path only), metablock command
+planning and boundary splitting.
 
 Commands are (insert_len, copy_len, distance) with distance == 0 meaning
 "final insert-only command".
@@ -9,6 +10,57 @@ Commands are (insert_len, copy_len, distance) with distance == 0 meaning
 import numpy as np
 
 from .. import native
+
+MIN_MATCH = 4
+
+
+def _match_len(data, a: int, b: int, max_len: int) -> int:
+    """Common-prefix length of data[a:] vs data[b:], capped."""
+    n = min(max_len, len(data) - b)
+    ln = 0
+    step = 64
+    # geometric strides: long matches (megabytes on repetitive data)
+    # cost O(log) numpy calls instead of O(len/64)
+    while ln < n:
+        step = min(step, n - ln)
+        da = data[a + ln:a + ln + step]
+        db = data[b + ln:b + ln + step]
+        neq = np.flatnonzero(da != db)
+        if len(neq):
+            return ln + int(neq[0])
+        ln += step
+        step = min(step * 4, 1 << 20)
+    return n
+
+
+def _extend_capped(data, m, lens, dists, flags, cap, max_match):
+    """Serially extend LZ matches that hit the parallel cap, dropping
+    later matches they swallow. Dictionary matches (flags != 0) are
+    exact and never extended. Iterations ~ number of cap-hit matches."""
+    n = len(data)
+    caphit = (lens >= cap) & (flags == 0)
+    if len(m) == 0 or not np.any(caphit):
+        return m, lens, dists, flags
+    out = ([], [], [], [])
+    i = 0
+    nm = len(m)
+    hit_idx = np.flatnonzero(caphit)
+    while i < nm:
+        hi = np.searchsorted(hit_idx, i)
+        nxt_hit = int(hit_idx[hi]) if hi < len(hit_idx) else nm
+        if nxt_hit > i:  # bulk-copy the run of uncapped matches
+            for o, a in zip(out, (m, lens, dists, flags)):
+                o.append(a[i:nxt_hit])
+            i = nxt_hit
+            continue
+        p, d = int(m[i]), int(dists[i])
+        ln = cap + _match_len(data, p - d + cap, p + cap,
+                              min(max_match, n - p) - cap)
+        for o, v in zip(out, (p, ln, d, 0)):
+            o.append(np.array([v]))
+        # skip matches swallowed by the extension
+        i = int(np.searchsorted(m, p + ln, side="left"))
+    return tuple(np.concatenate(o).astype(np.int64) for o in out)
 
 
 def add_dictionary_matches(data, m, lens, dists, flags, max_distance,

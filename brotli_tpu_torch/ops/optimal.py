@@ -38,7 +38,7 @@ from ..enc.optimal import CMD_BASE_Q, QB, _coalesce, bridge_matches
 from ..format import constants as C
 from ..format import context as ctx
 from ..format import prefix
-from ..utils import trace, u32
+from ..utils import fetch, trace, u32
 from ..utils.device import resolve
 from . import kernels
 
@@ -524,7 +524,8 @@ def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device):
 def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big,
                  base=0, dict_g=None, lo_start=0):
     """Run every segment's DP from `lo_start` (device work is queued
-    asynchronously; nothing waits for it here). Returns (handles,
+    asynchronously; nothing waits for it here; each segment records an
+    event when queued, which its collect waits on). Returns (handles,
     dict_table): dict_table = (global hit positions, word lengths) for
     flag recovery at collect time. `dict_g`: an already computed
     _dict_probe_global result."""
@@ -544,42 +545,43 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big,
                 _slice_seg(dev_big, lo, b), npos, max_distance, bits_tab,
                 ctx_tab, copyq, distq, spos, slen, sdist, dloc, dval,
                 lo + base, capm=capm)
-        handles.append((lo, capm, packed, full))
+        handles.append((lo, capm, packed, full, fetch.mark(dev)))
     dpos_g, _, dwlen_g = dict_g
     return handles, (dpos_g.astype(np.int64), dwlen_g)
 
 
-def _to_u32(t):
-    return t.cpu().numpy().astype(np.uint32)
+def _to_u32(events, tensors):
+    return fetch.fetch_after(events, tensors).numpy().astype(np.uint32)
 
 
 def _collect_v3(handles, dict_table, max_distance, base=0):
     """One stacked device-to-host copy per packed shape, sliced to half
     the match cap (the count-first layout keeps the count inside the
-    slice; rare overflows pay a second fetch). Matches whose distance
+    slice; rare overflows pay a second fetch). Each copy waits only on
+    the events of the segments it reads. Matches whose distance
     exceeds the window at their position are the DP's dictionary
     edges; their word-length flags (2000 + wlen) come back from the
     host probe table."""
     dpos_g, dwlen_g = dict_table
     groups = {}
-    for i, (_lo, capm, packed, _full) in enumerate(handles):
+    for i, (_lo, capm, packed, _full, _ev) in enumerate(handles):
         groups.setdefault((tuple(packed.shape), capm), []).append(i)
     fetched = [None] * len(handles)
     with trace.stage("dp.fetch"):
         for (_shape, capm), idxs in groups.items():
             k = 8 + capm // 2
-            host = _to_u32(torch.stack([handles[i][2][:, :k]
-                                        for i in idxs]))
+            host = _to_u32([handles[i][4] for i in idxs],
+                           [handles[i][2][:, :k] for i in idxs])
             for j, i in enumerate(idxs):
                 fetched[i] = host[j]
     all_m, all_l, all_d, all_f = [], [], [], []
-    for (lo, capm, packed, full), hp in zip(handles, fetched):
+    for (lo, capm, packed, full, ev), hp in zip(handles, fetched):
         cnt = int(hp[0, 0])
         if cnt > capm:  # rare overflow: fetch the uncapped compaction
-            hostf = _to_u32(full[:, :cnt])
+            hostf = _to_u32([ev], [full[:, :cnt]])[0]
             pos_c, pay_c = hostf[0], hostf[1]
         elif cnt > capm // 2:  # middle tier: fetch the full packed
-            hostp = _to_u32(packed)
+            hostp = _to_u32([ev], [packed])[0]
             pos_c, pay_c = hostp[0, 8:8 + cnt], hostp[1, 8:8 + cnt]
         else:
             pos_c, pay_c = hp[0, 8:8 + cnt], hp[1, 8:8 + cnt]
@@ -698,20 +700,23 @@ def _cost_tables(data: np.ndarray, seed):
     return litbits_q, copyq, dist_sym_bits_q, _ctx_tab2()
 
 
-def _seed_parse(arr: np.ndarray, max_distance: int, base: int):
-    """Greedy/lazy q9 seed parse for the DP by the native C matcher,
-    which needs base == 0 and a standard window (maxback == 2^lgwin -
-    16). The JAX package falls back to its device matcher otherwise;
-    that matcher is ROADMAP M6."""
+def _seed_parse(arr: np.ndarray, max_distance: int, base: int,
+                device=None):
+    """Greedy/lazy seed parse for the DP. The native C matcher (q9)
+    when the input starts the stream (base == 0) and the window is a
+    standard lgwin (maxback == 2^lgwin - 16); the device matcher at q5
+    on `device` otherwise, as the JAX package does."""
     lgwin = int(max_distance + 16).bit_length() - 1
-    if not (base == 0 and 10 <= lgwin <= 24 and
+    if (base == 0 and 10 <= lgwin <= 24 and
             C.max_backward_distance(lgwin) == max_distance):
-        raise NotImplementedError(
-            "seed parse off the native matcher (ROADMAP M6)")
-    p, l, d = native.find_matches(np.ascontiguousarray(arr).tobytes(),
-                                  SEED_Q, lgwin)
-    z = np.zeros(len(p), np.int64)
-    return (p.astype(np.int64), l.astype(np.int64), d.astype(np.int64), z)
+        p, l, d = native.find_matches(np.ascontiguousarray(arr).tobytes(),
+                                      SEED_Q, lgwin)
+        z = np.zeros(len(p), np.int64)
+        return (p.astype(np.int64), l.astype(np.int64), d.astype(np.int64),
+                z)
+    from .matcher import find_matches_device  # ops.matcher imports this
+    return find_matches_device(arr, max_distance, quality=5, base=base,
+                               use_dict=False, device=device)
 
 
 def find_matches_optimal(data: np.ndarray, max_distance: int,
@@ -735,7 +740,7 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
     handles0 = None
     if n > SEG_V3 and base == 0:
         with trace.stage("dp.seed1"):
-            seed1 = _seed_parse(arr[:SEG_V3], max_distance, base)
+            seed1 = _seed_parse(arr[:SEG_V3], max_distance, base, dev)
         with trace.stage("dp.cost-tables1"):
             tables1 = _cost_tables(arr[:SEG_V3], seed1)
         dict1 = _dict_probe_global(arr[:SEG_V3], [seed1], base,
@@ -745,7 +750,7 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                                        tables1, [seed1], dev_big, base,
                                        dict_g=dict1)
     with trace.stage("dp.seed"):
-        seed = _seed_parse(arr, max_distance, base)
+        seed = _seed_parse(arr, max_distance, base, dev)
     with trace.stage("dp.cost-tables"):
         tables = _cost_tables(arr, seed)
     with trace.stage("dp.device"):

@@ -1,0 +1,119 @@
+"""Sharded compression on one card (counterpart of
+brotli_tpu.parallel.shard).
+
+The input splits into shards; the card match-finds them one after
+another (the device matcher at q<=9, the optimal-parse DP at q>=10,
+each with the shard's absolute offset as its base), and host threads
+serialize each shard natively as whole byte-aligned metablock
+sequences that concatenate into ONE valid stream (non-last shards end
+with an empty metadata block). The decoder's distance ring crosses
+shard seams, so each shard's entry ring is derived from the matches
+before it.
+"""
+
+import concurrent.futures as futures
+
+import numpy as np
+import torch
+
+from ..enc import bitstream, matcher
+from ..format import constants as C
+from ..ops.matcher import find_matches_device
+from ..ops.optimal import find_matches_optimal
+from ..utils import trace
+from ..utils.device import resolve
+from . import serialize_shard_native
+
+
+def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
+                     n_shards: int = None, use_device: bool = True,
+                     gather: str = "host", serializer: str = "native",
+                     device=None) -> bytes:
+    """Compress with `n_shards` shards on `device` (None = "cuda";
+    "cpu" runs the plain PyTorch versions of the kernels); returns a
+    single RFC 7932 stream. `n_shards=None` means one shard per CUDA
+    device on the card, one on the CPU.
+
+    Not ported yet, and raising NotImplementedError: more CUDA devices
+    than one with n_shards > 1 (the mesh, ROADMAP M7), gather=
+    "collective" (M7/M10), serializer="device" (M8), and use_device=
+    False or inputs under n_shards * 64 KiB, where the JAX package
+    takes its host encoder (M13)."""
+    dev = resolve(device)
+    if gather != "host":
+        raise NotImplementedError(
+            "gather='collective' (ROADMAP M7/M10)")
+    if serializer != "native":
+        raise NotImplementedError("serializer='device' (ROADMAP M8)")
+    if not use_device:
+        raise NotImplementedError(
+            "use_device=False takes the host encoder (ROADMAP M13)")
+    raw = bytes(data)
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    n = len(arr)
+    if n_shards is None:
+        n_shards = max(torch.cuda.device_count(), 1) \
+            if dev.type == "cuda" else 1
+    if n == 0 or n < n_shards * (1 << 16):
+        raise NotImplementedError(
+            "inputs under n_shards * 64 KiB take the host encoder "
+            "(ROADMAP M13)")
+
+    bounds = np.linspace(0, n, n_shards + 1).astype(np.int64)
+    max_distance = C.max_backward_distance(lgwin)
+
+    # Stage 1: match finding per shard on the card.
+    shard_matches = _find_matches_sharded(arr, bounds, max_distance,
+                                          quality, dev)
+
+    # split matches at metablock boundaries first: splitting can drop
+    # tiny straddlers, and the ring derivation below must see exactly
+    # the commands that will be serialized
+    mb = 1 << min(22, C.MAX_INPUT_BLOCK_BITS)
+    for si in range(n_shards):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        boundaries = list(range(lo + mb, hi, mb)) + [hi]
+        m, lens, dists, flags = shard_matches[si]
+        shard_matches[si] = matcher.split_matches_at(
+            m + lo, lens, dists, flags, boundaries)
+
+    # the decoder's distance ring crosses shard seams: derive each
+    # shard's entry ring from the previous shard's matches
+    entry_rings = [None]
+    for si in range(n_shards - 1):
+        _, _, sdists, sflags = shard_matches[si]
+        entry_rings.append(bitstream.ring_after(sdists, sflags,
+                                                entry_rings[-1]))
+
+    # Stage 2: native serialization per shard, each byte-aligned; the
+    # native call releases the GIL, so shards serialize in parallel
+    def serialize(si):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        with trace.stage("serialize"):
+            return serialize_shard_native(
+                raw, lo, hi, shard_matches[si], quality, lgwin,
+                entry_rings[si], si == 0, si == n_shards - 1)
+
+    with futures.ThreadPoolExecutor(max_workers=min(n_shards, 8)) as ex:
+        parts = list(ex.map(serialize, range(n_shards)))
+    return b"".join(parts)
+
+
+def _find_matches_sharded(arr, bounds, max_distance, quality, device):
+    """Per-shard match finding, one shard after another on `device`.
+    Match positions are shard-relative."""
+    n_shards = len(bounds) - 1
+    if device.type == "cuda" and torch.cuda.device_count() >= n_shards > 1:
+        raise NotImplementedError(
+            "one shard per CUDA device, the mesh (ROADMAP M7)")
+    out = []
+    for si in range(n_shards):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        shard = arr[lo:hi]
+        if quality >= 10:
+            out.append(find_matches_optimal(shard, max_distance, base=lo,
+                                            device=device))
+        else:
+            out.append(find_matches_device(shard, max_distance, quality,
+                                           base=lo, device=device))
+    return out

@@ -1,7 +1,8 @@
-"""Where the device time of a q11 encode goes, on the card.
+"""Where the device time of an encode goes, on the card.
 
 Compresses the 16 MiB corpus of tools/corpus.py once to warm up, then once
-under torch.profiler, and prints:
+under torch.profiler, through the q11 path (api.compress, the default) or
+the q5 path (parallel.shard.compress_sharded, `--path q5`), and prints:
   * the wall seconds of the profiled run (host clock, ending in a
     synchronize) and the card's busy seconds: the union of the
     intervals of every kernel and copy it ran;
@@ -11,9 +12,10 @@ under torch.profiler, and prints:
     for the card (a synchronize, a copy to pageable host memory) shows.
 
 Usage, from the repository root on a machine with a card:
-    python3 -m brotli_tpu_torch.tools.profile_q11
+    python3 -m brotli_tpu_torch.tools.profile_q11 [--path q11|q5]
 """
 
+import argparse
 import subprocess
 import time
 
@@ -22,7 +24,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import compress
+from ..parallel.shard import compress_sharded
 from .corpus import build_corpus
+
+PATHS = {"q11": lambda data: compress(data, quality=11),
+         "q5": lambda data: compress_sharded(data, quality=5)}
 
 TOP = 25  # rows of each table
 
@@ -44,7 +50,11 @@ def _table(rows, title):
         print(f"  {us / 1e3:10.1f} ms  {calls:7d} calls  {name[:90]}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=sorted(PATHS), default="q11")
+    path = ap.parse_args(argv).path
+    run = PATHS[path]
     if not torch.cuda.is_available():
         raise SystemExit("profile_q11: CUDA is not available")
     card = subprocess.run(
@@ -52,12 +62,12 @@ def main() -> None:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
     data = build_corpus()
-    out = compress(data, quality=11)
+    out = run(data)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        again = compress(data, quality=11)
+        again = run(data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if again != out:
@@ -74,7 +84,7 @@ def main() -> None:
             calls, us = runtime.get(e.name, (0, 0.0))
             runtime[e.name] = (calls + 1, us + span)
     busy = _busy_us(intervals) / 1e6
-    print(f"q11 {len(data)} B -> {len(out)} B on {card}")
+    print(f"{path} {len(data)} B -> {len(out)} B on {card}")
     print(f"wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
           f"{1 - busy / wall:.4f} ({len(intervals)} device events)")
     _table(dev, "device kernels and copies:")

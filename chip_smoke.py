@@ -5,16 +5,23 @@ Phases (any failure ends the run with a non-zero exit and no result):
   2. build the port's native library and its CUDA kernels from the
      sources in this checkout;
   3. hold each kernel bit for bit against its plain PyTorch version on
-     the card, on the real inputs of the corpus's first 4 MiB segment,
-     and time both (median of CUDA-event timed runs);
-  4. the main path: compress the 16 MiB corpus at q11 on the card
-     three times: a first run, a timed run (stage trace off; kernel
-     launches and peak device memory counted; decoded back exactly)
-     and a traced run for the stage breakdown, all with the same bytes;
-  5. the same bytes from the kernels and from the plain versions on
+     the card and time both (median of CUDA-event timed runs): K1, K3
+     and K4 on the real inputs of the corpus's first 4 MiB DP segment,
+     K2 on the real skip vector of the q5 matcher's second 8 MiB
+     segment and on seeded vectors;
+  4. the q11 path: compress the 16 MiB corpus at q11 on the card three
+     times: a first run, a timed run (stage trace off; kernel launches
+     and peak device memory counted; decoded back exactly) and a traced
+     run for the stage breakdown, all with the same bytes;
+  5. the same q11 bytes from the kernels and from the plain versions on
      the CPU, for a 512 KiB prefix;
-  6. print the kernels line (launches of the main path, errors, times
-     and bounds), the card again, and the final JSON line.
+  6. the q5 path: parallel.shard.compress_sharded(corpus, quality=5),
+     the device matcher with K2, run three times as in phase 4;
+  7. the same q5 bytes on the card and on the CPU, for a 1 MiB prefix;
+  8. q11 with two shards on the card (8 MiB): the second shard's seed
+     parse runs the device matcher, so all four kernels launch;
+  9. print the kernels line (launches on each kernel's path, errors,
+     times and bounds), the card again, and the final JSON line.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -74,13 +81,55 @@ def max_abs_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def timed(fn):
+    """(result, seconds) of fn() on the host clock, between two
+    synchronizes."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def three_runs(fn, trace, kernels, label, corpus, decompress, card):
+    """A first run, a timed run with the trace off (kernel launches and
+    peak device memory counted, the stream decoded back exactly) and a
+    traced run; all three must give the same bytes. Returns the timed
+    run's launches."""
+    first, cold = timed(fn)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out, wall = timed(fn)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if decompress(out) != corpus:
+        sys.exit(f"chip_smoke: the {label} stream does not decode back")
+    print(f"    {label}: {len(corpus)} B -> {len(out)} B (ratio "
+          f"{len(corpus) / len(out):.4f}) in {wall:.3f} s = "
+          f"{len(corpus) / wall / 1e6:.3f} MB/s [{card}]; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    trace.enable()
+    trace.reset()
+    again, traced = timed(fn)
+    trace.enable(False)
+    print(f"    first run {cold:.3f} s, traced run {traced:.3f} s; "
+          f"stages of the traced run:")
+    print(trace.format_report(), flush=True)
+    if not first == out == again:
+        sys.exit(f"chip_smoke: {label} runs on the same input differ")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
     import brotli_tpu_torch as bt
     from brotli_tpu_torch import native
     from brotli_tpu_torch.format import constants as C
-    from brotli_tpu_torch.ops import kernels, optimal as OPT
+    from brotli_tpu_torch.ops import chain, kernels, optimal as OPT
+    from brotli_tpu_torch.ops import matcher as PM
+    from brotli_tpu_torch.parallel.shard import compress_sharded
     from brotli_tpu_torch.tools.corpus import build_corpus
     from brotli_tpu_torch.utils import trace
 
@@ -179,58 +228,81 @@ def main():
         nbytes=(pay.numel() + g.numel() + v.numel()) * 4,
         nops=nb * OPT.B * 8)
     print(f"[3] K4 dp_backtrack: max_abs_err {err}", flush=True)
+    del pd, cs, litq, pay, g, v, g_plain, v_plain, pay_plain
+    torch.cuda.empty_cache()
+
+    # K2 on the real skip vector of the q5 matcher's second segment of
+    # the 16 MiB corpus (buffer [0, 8 MiB), start 4 Mi), then on seeded
+    # vectors; every comparison is bitwise
+    nk = PM._bucket(PM.SEG_BYTES)
+    buf = torch.from_numpy(arr[:nk].copy()).to(dev)
+    _, _, skip = PM.match_skip(buf, nk - 3, maxd, 4)
+    skip = skip.to(torch.int32)
+    del buf
+    start_real = PM.SEG_BYTES // 2
+    rng = np.random.default_rng(0)
+    cases = [("real", skip, start_real)]
+    for fill in ("1", "16", "uniform"):
+        vec = (rng.integers(1, 17, nk) if fill == "uniform"
+               else np.full(nk, int(fill)))
+        vec = torch.from_numpy(vec.astype(np.int32)).to(dev)
+        cases += [(f"{fill}@{st}", vec, st) for st in (0, 12345)]
+    errs, taken = {}, {}
+    for label, vec, st in cases:
+        got = kernels.chain_select(vec, nk, st)
+        want = chain.chain_select_plain(vec, nk, st)
+        torch.cuda.synchronize()
+        errs[label] = max_abs_err(got, want)
+        taken[label] = int(want.sum())
+    print(f"[3] K2 chain_select: max_abs_err {errs}; matches taken "
+          f"{taken}", flush=True)
+    # a skip outside [1, 16] sets the kernel's error flag
+    bad_skip = skip.clone()
+    bad_skip[nk // 3] = 0
+    _, flag = kernels.chain_select_launch(bad_skip, nk, 0)
+    if int(flag.item()) == 0:
+        sys.exit("chip_smoke: K2 took a skip outside [1, 16]")
+    rows["K2"] = dict(
+        name="chain_select", route="cuda",
+        source="brotli_tpu_torch/csrc/chain_select.cu",
+        replaces="brotli_tpu/ops/chain_pallas.py:59",
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: kernels.chain_select_launch(skip, nk,
+                                                       start_real), 10),
+        plain_ms=cuda_ms(lambda: chain.chain_select_plain(skip, nk,
+                                                          start_real), 1),
+        nbytes=2 * nk * 4,  # skip read once, sel written once
+        nops=nk)
+    del cases, vec, got, want, bad_skip
+
     for k, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
         print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}) at n={n} [{card}]")
+              f"({r['bound_by']}) at n={nk if k == 'K2' else n} [{card}]")
     mhz = float(smi("clocks.max.sm").split()[0])
     print(f"    K4 dp_backtrack: dependent-chain floor "
           f"{OPT.B * SMEM_LOAD_CYCLES / mhz * 1e-3:.3f} ms ({OPT.B} "
           f"steps of {SMEM_LOAD_CYCLES} cycles at {mhz:.0f} MHz)")
+    steps = 2 * kernels.CHAIN_L + nk // kernels.CHAIN_L
+    print(f"    K2 chain_select: dependent-chain floor of its three passes "
+          f"{steps * SMEM_LOAD_CYCLES / mhz * 1e-3:.3f} ms ({steps} steps "
+          f"of {SMEM_LOAD_CYCLES} cycles at {mhz:.0f} MHz)")
     bad = [k for k, r in rows.items() if r["max_abs_err"] != 0]
     if bad:
         sys.exit(f"chip_smoke: kernels disagree with their plain "
                  f"versions: {bad}")
-    del pd, cs, litq, pay, g, v, g_plain, v_plain, pay_plain
+    del skip
     torch.cuda.empty_cache()
 
-    # -- 4. the main path -------------------------------------------------
-    def run_main():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = bt.compress(corpus, quality=11)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
-
-    # the first run pays first-use costs (allocator, host page faults);
-    # the timed run after it has the stage trace off; a third, traced
-    # run gives the stage breakdown. All three must give the same bytes.
-    first, cold = run_main()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    out, wall = run_main()
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    if bt.decompress(out) != corpus:
-        sys.exit("chip_smoke: the 16 MiB stream does not decode back")
-    print(f"[4] q11 {len(corpus)} B -> {len(out)} B (ratio "
-          f"{len(corpus) / len(out):.4f}) in {wall:.3f} s = "
-          f"{len(corpus) / wall / 1e6:.3f} MB/s on {name} [{card}]; "
-          f"peak device memory {peak / 2**30:.2f} GiB; "
-          f"launches {launches}", flush=True)
-    missing = [k for k, c in launches.items() if c == 0]
+    # -- 4. the q11 path ------------------------------------------------
+    print("[4] q11, api.compress", flush=True)
+    launches = three_runs(lambda: bt.compress(corpus, quality=11), trace,
+                          kernels, "q11", corpus, bt.decompress, card)
+    missing = [k for k in ("suffix_min", "dp_scan", "dp_backtrack")
+               if launches[k] == 0]
     if missing:
-        sys.exit(f"chip_smoke: the main path launched no {missing}")
-    trace.enable()
-    trace.reset()
-    again, traced = run_main()
-    trace.enable(False)
-    print(f"    first run {cold:.3f} s, traced run {traced:.3f} s; "
-          f"stages of the traced run:")
-    print(trace.format_report(), flush=True)
-    if not first == out == again:
-        sys.exit("chip_smoke: runs on the same input differ")
+        sys.exit(f"chip_smoke: the q11 path launched no {missing}")
 
     # -- 5. kernels and plain versions give the same stream ---------------
     prefix = corpus[:512 << 10]
@@ -242,13 +314,48 @@ def main():
     if on_card != on_cpu or bt.decompress(on_card) != prefix:
         sys.exit("chip_smoke: cuda and cpu streams differ")
 
-    # -- 6. report ----------------------------------------------------------
+    # -- 6. the q5 path --------------------------------------------------
+    print("[6] q5, parallel.shard.compress_sharded", flush=True)
+    launches_q5 = three_runs(
+        lambda: compress_sharded(corpus, quality=5), trace, kernels, "q5",
+        corpus, bt.decompress, card)
+    if launches_q5["chain_select"] != 4:
+        sys.exit(f"chip_smoke: the q5 path launched chain_select "
+                 f"{launches_q5['chain_select']} times, not 4")
+
+    # -- 7. q5 on the card and on the CPU --------------------------------
+    prefix = corpus[:1 << 20]
+    on_card = compress_sharded(prefix, quality=5)
+    t0 = time.perf_counter()
+    on_cpu = compress_sharded(prefix, quality=5, device="cpu")
+    print(f"[7] q5 1 MiB prefix: cuda {len(on_card)} B, cpu {len(on_cpu)} "
+          f"B (cpu path {time.perf_counter() - t0:.1f} s)", flush=True)
+    if on_card != on_cpu or bt.decompress(on_card) != prefix:
+        sys.exit("chip_smoke: q5 cuda and cpu streams differ")
+
+    # -- 8. q11 with two shards ------------------------------------------
+    part = corpus[:8 << 20]
+    kernels.reset_launches()
+    out2, wall2 = timed(lambda: compress_sharded(part, quality=11,
+                                                 n_shards=2))
+    launches_sh = dict(kernels.LAUNCHES)
+    print(f"[8] q11, two shards: {len(part)} B -> {len(out2)} B (ratio "
+          f"{len(part) / len(out2):.4f}) in {wall2:.3f} s [{card}]; "
+          f"launches {launches_sh}", flush=True)
+    if bt.decompress(out2) != part:
+        sys.exit("chip_smoke: the two-shard q11 stream does not decode")
+    missing = [k for k, c in launches_sh.items() if c == 0]
+    if missing:
+        sys.exit(f"chip_smoke: the two-shard q11 path launched no {missing}")
+
+    # -- 9. report -------------------------------------------------------
+    path_launches = dict(launches, chain_select=launches_q5["chain_select"])
     kern = []
-    for key in ("K1", "K3", "K4"):
+    for key in ("K1", "K2", "K3", "K4"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],
-                         launches=launches[r["name"]],
+                         launches=path_launches[r["name"]],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))

@@ -335,7 +335,7 @@ def test_no_cuda_raises(monkeypatch, arr):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(quality=9), "M6"), (dict(quality=0), "M6"),
+    (dict(quality=9), "M13"), (dict(quality=0), "M13"),
     (dict(size=1000), "M13"), (dict(size=(1 << 18) - 1), "M13"),
     (dict(dictionary=b"abc"), "M13"), (dict(large_window=True), "M13"),
     (dict(mode=1), "M13"), (dict(mode=2), "M13")])
@@ -362,8 +362,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                         torch.zeros(4096, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.dp_backtrack(torch.zeros((1, 4097), dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.chain_select(torch.ones(4096, dtype=torch.int32), 4096, 0)
     assert kernels.LAUNCHES == {"suffix_min": 0, "dp_scan": 0,
-                                "dp_backtrack": 0}
+                                "dp_backtrack": 0, "chain_select": 0}
 
 
 def test_profile_busy_time_is_the_union():
@@ -373,16 +375,21 @@ def test_profile_busy_time_is_the_union():
 
 
 def test_import_isolation():
-    """(h) importing the port and one CPU compress leave no JAX and no
-    module of the JAX package behind."""
+    """(h) importing the port, one CPU compress and one CPU
+    compress_sharded at q5 leave no JAX and no module of the JAX
+    package behind."""
     code = "\n".join([
         "import sys",
         "import brotli_tpu_torch as bt",
-        "from brotli_tpu_torch.ops import optimal as O",
+        "from brotli_tpu_torch.ops import matcher as M, optimal as O",
+        "from brotli_tpu_torch.parallel.shard import compress_sharded",
         "from brotli_tpu_torch.tools.corpus import build_corpus",
         "O.SEG_V3, O.BUCKETS_V3 = 1 << 16, [1 << 16]",
+        "M._BUCKETS, M.SEG_BYTES = [1 << 16, 1 << 17], 1 << 17",
         "data = build_corpus(1 << 20)[50_000:50_000 + (1 << 18)]",
         "out = bt.compress(data, device='cpu')",
+        "assert bt.decompress(out) == data",
+        "out = compress_sharded(data, quality=5, n_shards=2, device='cpu')",
         "assert bt.decompress(out) == data",
         "print(sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'brotli_tpu')))",
