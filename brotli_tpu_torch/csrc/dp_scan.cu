@@ -1,4 +1,4 @@
-// K3 and K4: the DP wavefront scan and the backtrack of every DP block.
+// K3: the DP wavefront scan of every DP block.
 //
 // K3 (dp_scan_kernel) replaces the default branch of
 // brotli_tpu/ops/optimal_jax.py::_scan_math_v3, a lax.scan over the B
@@ -23,16 +23,7 @@
 // next rows U steps ahead into registers, double-buffered, so the row
 // stream overlaps the dependent chain.
 //
-// K4 (dp_backtrack_kernel) replaces the backtrack of
-// optimal_jax.py::_finish_math: from position B, step back by the
-// payload's length (at least 1; 0 at position 0) for exactly B steps,
-// recording each step's global match start (-1 for a literal or a
-// no-op) and payload in the scan's (B, nb) layout. The stable
-// compaction that follows stays a torch.sort. Bound: the B-step
-// dependent chain of each block (bytes are 50 MB). Design: one block per
-// DP block stages its paymat row (16 KiB) in shared memory; one thread
-// walks it (a shared-memory load per step) and records the positions;
-// then all threads decode and store the B entries in parallel.
+// K4, the backtrack that reads paymat, is dp_backtrack.cu.
 
 #include <cuda_runtime.h>
 
@@ -42,7 +33,6 @@ constexpr int W = 64;
 constexpr int B = 4096;
 constexpr int INF = 1 << 30;
 constexpr int U = 8;  // rows prefetched per buffer
-constexpr int BT_THREADS = 128;
 
 __device__ __forceinline__ int add32(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);  // int32 wrap like XLA
@@ -119,53 +109,11 @@ dp_scan_kernel(const int* __restrict__ mp, const int* __restrict__ litq,
   if (((j - B) & (W - 1)) == 0) prow[B] = P;  // column 0 after the end
 }
 
-__device__ __forceinline__ int wrap(int posv) {
-  return posv < 0 ? posv + B + 1 : posv;  // negative index, as jnp/torch
-}
-
-__global__ void __launch_bounds__(BT_THREADS)
-dp_backtrack_kernel(const int* __restrict__ paymat, int* __restrict__ gsrc,
-                    int* __restrict__ vals, int nb) {
-  __shared__ int row[B + 1];
-  __shared__ int walk[B];
-  const int b = blockIdx.x;
-  const int* prow = paymat + (long long)b * (B + 1);
-  for (int k = threadIdx.x; k <= B; k += BT_THREADS) row[k] = prow[k];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int posv = B;
-    for (int k = 0; k < B; ++k) {
-      walk[k] = posv;
-      const int ln = row[wrap(posv)] >> 25;
-      posv -= posv > 0 ? max(ln, 1) : 0;
-    }
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < B; k += BT_THREADS) {
-    const int posv = walk[k];
-    const int v = row[wrap(posv)];
-    const int ln = v >> 25;
-    const int src = posv - (posv > 0 ? max(ln, 1) : 0);
-    const bool start = ln >= 2 && posv > 0 && src >= 0;
-    const long long o = (long long)k * nb + b;
-    gsrc[o] = start ? src + b * B : -1;
-    vals[o] = v;
-  }
-}
-
 }  // namespace
 
 extern "C" int btt_dp_scan(const int* mp, const int* litq, int* paymat,
                            int nb, cudaStream_t stream) {
   if (nb <= 0) return -1;
   dp_scan_kernel<<<nb, W, 0, stream>>>(mp, litq, paymat);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int btt_dp_backtrack(const int* paymat, int* gsrc, int* vals,
-                                int nb, cudaStream_t stream) {
-  if (nb <= 0) return -1;
-  dp_backtrack_kernel<<<nb, BT_THREADS, 0, stream>>>(paymat, gsrc, vals,
-                                                     nb);
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("suffix_min", "dp_scan", "chain_select")
+SOURCES = ("suffix_min", "dp_scan", "dp_backtrack", "chain_select")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -117,7 +117,8 @@ def _check(t: torch.Tensor, name: str, ndim: int) -> None:
 def _launch(source, symbol, device, *args) -> None:
     fn = _fn(source, symbol)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        # the raw cudaStream_t, without building a torch.cuda.Stream
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
@@ -158,14 +159,16 @@ def dp_scan(mp, litq):
 
 def dp_backtrack(paymat):
     """K4 on the card: paymat (nb, B + 1) -> int32 (B, nb) global match
-    starts (-1 = none) and payloads."""
+    starts (-1 = none) and payloads, the two halves of one allocation.
+    The walk's scratch is the kernel's shared memory; nothing else is
+    allocated."""
     _check(paymat, "paymat", 2)
     nb = paymat.shape[0]
-    if paymat.shape[1] != B + 1:
+    if paymat.shape[1] != B + 1 or nb * B >= 1 << 31:
         raise ValueError("dp_backtrack: bad shapes")
-    gsrc = torch.empty((B, nb), dtype=torch.int32, device=paymat.device)
-    vals = torch.empty((B, nb), dtype=torch.int32, device=paymat.device)
-    _launch("dp_scan", "btt_dp_backtrack", paymat.device,
+    gsrc, vals = torch.empty((2, B, nb), dtype=torch.int32,
+                             device=paymat.device)
+    _launch("dp_backtrack", "btt_dp_backtrack", paymat.device,
             paymat.data_ptr(), gsrc.data_ptr(), vals.data_ptr(), nb)
     LAUNCHES["dp_backtrack"] += 1
     return gsrc, vals

@@ -13,7 +13,7 @@ bucket) the device runs four stages:
      the W window columns;
   3. the wavefront scan (K3, csrc/dp_scan.cu): per DP block of B
      positions, 4096 dependent relaxation steps over a W-column window;
-  4. the backtrack (K4, csrc/dp_scan.cu) and a stable sort that
+  4. the backtrack (K4, csrc/dp_backtrack.cu) and a stable sort that
      compacts the chosen match starts.
 
 Every kernel has a plain PyTorch version here with the same contract;
@@ -367,7 +367,7 @@ def dp_backtrack_plain(paymat):
 
 
 def dp_backtrack(paymat):
-    """K4: the plain version on the CPU, csrc/dp_scan.cu on the
+    """K4: the plain version on the CPU, csrc/dp_backtrack.cu on the
     card."""
     if paymat.device.type == "cpu":
         return dp_backtrack_plain(paymat)

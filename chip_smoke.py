@@ -7,8 +7,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
   3. hold each kernel bit for bit against its plain PyTorch version on
      the card and time both (median of CUDA-event timed runs): K1, K3
      and K4 on the real inputs of the corpus's first 4 MiB DP segment,
-     K2 on the real skip vector of the q5 matcher's second 8 MiB
-     segment and on seeded vectors;
+     K1 and K4 also on seeded inputs at the same shapes (K4 also with
+     a part-full last CTA and with rows off the 16-byte grid), K2 on the
+     real skip vector of the q5 matcher's second 8 MiB segment and on
+     seeded vectors;
   4. the q11 path: compress the 16 MiB corpus at q11 on the card three
      times: a first run, a timed run (stage trace off; kernel launches
      and peak device memory counted; decoded back exactly) and a traced
@@ -41,9 +43,11 @@ import torch
 PEAK_BYTES = 3.35e12
 PEAK_OPS32 = 67e12
 # latency of one shared-memory load on Hopper, in SM cycles (published
-# microbenchmarks put it near 30): the backtrack's B dependent steps
-# each wait on one, so B of them at the top SM clock are its floor
+# microbenchmarks put it near 30): each dependent step of K2's chain
+# walks waits on one, so their steps at the top SM clock are its floor
 SMEM_LOAD_CYCLES = 30
+# ~1 ms at the H100's SM clock: longer than any wrapper's launch gap
+SPIN_CYCLES = 2_000_000
 
 
 def smi(query: str) -> str:
@@ -56,12 +60,19 @@ def card_line() -> str:
     return smi("name,power.limit")
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, queued=False):
     """Median ms of `reps` runs of fn, each between CUDA events, after
-    one warm-up run."""
+    one warm-up run. One call at a time (the kernels line's `ms`), the
+    time holds the host's launch gap (the wrapper's Python) after the
+    first event. Queued (its `device_ms`), each run waits behind a ~1 ms
+    spin kernel, so the host has enqueued its launches before the first
+    event fires and the events time the card's work alone."""
     fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -70,6 +81,42 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def k1_case(nslots, n, seed):
+    """Seeded K1 slots at the main path's width, as in
+    tests/test_torch_kernels.py: costs from a handful of values (ties
+    across slots, values at and above 1 << 28, a negative one), lengths
+    over -64..63 (pd with bit 31 set), dictionary lengths 0..127 (64 and
+    above wrap), live distances on dead slots."""
+    rng = np.random.default_rng(seed)
+    ls = rng.integers(-64, 64, (nslots, n), dtype=np.int32)
+    ls[nslots - 2] = rng.integers(0, 128, n, dtype=np.int32)
+    ds = rng.integers(0, 1 << 25, (nslots, n), dtype=np.int32)
+    vals = np.array([-7, 0, 5, 5, 9, (1 << 28) - 1, 1 << 28, (1 << 28) + 1,
+                     (1 << 31) - 1], np.int32)
+    cs = vals[rng.integers(0, len(vals), (nslots, n), dtype=np.int32)]
+    pd = (ls.astype(np.uint32) << 25) | ds.astype(np.uint32)
+    copyq = rng.integers(0, 300, 64, dtype=np.int32)
+    copyq[:2] = 1 << 28
+    return pd.view(np.int32), cs, copyq
+
+
+def k4_case(fill, nb, B, seed):
+    """Seeded K4 payload rows: "ones" (lengths 0 or 1: the walk of B
+    positions), "random" (lengths over -64..63: steps that overrun the
+    block start into negative positions) or "63" (every length 63)."""
+    rng = np.random.default_rng(seed)
+    shape = (nb, B + 1)
+    if fill == "ones":
+        ln = rng.integers(0, 2, shape, dtype=np.int32)
+    elif fill == "random":
+        ln = rng.integers(-64, 64, shape, dtype=np.int32)
+    else:
+        ln = np.full(shape, 63, np.int32)
+    pay = (ln.astype(np.uint32) << 25) | rng.integers(
+        0, 1 << 25, shape, dtype=np.int32).astype(np.uint32)
+    return pay.view(np.int32)
 
 
 def bound(nbytes, nops):
@@ -182,21 +229,37 @@ def main():
     nslots = pd.shape[0]
     rows = {}
 
+    # K1 on seeded slots at the segment's width first (each case's rows
+    # are freed before the next), then on the real segment; every
+    # comparison is bitwise
+    errs = {}
+    for label, ns, sd in (("ties29", 29, 1), ("slots2", 2, 2),
+                          ("slots32", 32, 3)):
+        spd, scs, scq = (torch.from_numpy(a).to(dev)
+                         for a in k1_case(ns, n, sd))
+        got = kernels.suffix_min(spd, scs, scq)
+        errs[label] = max_abs_err(got, OPT.suffix_min_plain(spd, scs, scq))
+        del spd, scs, scq, got
+        torch.cuda.empty_cache()
     mp = kernels.suffix_min(pd, cs, copyq)
     mp_plain = OPT.suffix_min_plain(pd, cs, copyq)
     torch.cuda.synchronize()
-    err = max_abs_err(mp, mp_plain)
+    errs["real"] = max_abs_err(mp, mp_plain)
     del mp_plain
     rows["K1"] = dict(
         name="suffix_min", route="cuda",
         source="brotli_tpu_torch/csrc/suffix_min.cu",
         replaces="brotli_tpu/ops/optimal_jax.py:625",
-        max_abs_err=err,
+        max_abs_err=max(errs.values()),
         ms=cuda_ms(lambda: kernels.suffix_min(pd, cs, copyq), 10),
+        device_ms=cuda_ms(lambda: kernels.suffix_min(pd, cs, copyq), 10,
+                          queued=True),
         plain_ms=cuda_ms(lambda: OPT.suffix_min_plain(pd, cs, copyq), 3),
         nbytes=(pd.numel() + cs.numel() + copyq.numel() + mp.numel()) * 4,
-        nops=n * OPT.W * nslots * 6)
-    print(f"[3] K1 suffix_min: max_abs_err {err}", flush=True)
+        # the scatter's nslots and the suffix-min's W steps a position,
+        # about 8 operations each
+        nops=n * (nslots + OPT.W) * 8)
+    print(f"[3] K1 suffix_min: max_abs_err {errs}", flush=True)
 
     pay = kernels.dp_scan(mp, litq)
     pay_plain = OPT.dp_scan_plain(mp, litq)
@@ -208,27 +271,48 @@ def main():
         replaces="brotli_tpu/ops/optimal_jax.py:365",
         max_abs_err=err,
         ms=cuda_ms(lambda: kernels.dp_scan(mp, litq), 10),
+        device_ms=cuda_ms(lambda: kernels.dp_scan(mp, litq), 10,
+                          queued=True),
         plain_ms=cuda_ms(lambda: OPT.dp_scan_plain(mp, litq), 2),
         nbytes=(mp.numel() + litq.numel() + pay.numel()) * 4,
         nops=n * OPT.W * 4)
     print(f"[3] K3 dp_scan: max_abs_err {err}", flush=True)
     del mp
 
+    # K4 on seeded rows at the segment's width; then on a count of
+    # blocks that leaves the last CTA part-full, and on rows that start
+    # off the 16-byte grid (a slice from row 1: the scalar staging)
+    errs = {}
+    k4_cases = [(label, k4_case(label, nb, OPT.B, sd))
+                for label, sd in (("ones", 1), ("random", 2), ("63", 3))]
+    k4_cases += [("partial", k4_case("random", nb - 3, OPT.B, 4)),
+                 ("unaligned", k4_case("random", nb + 1, OPT.B, 5))]
+    for label, rows_np in k4_cases:
+        spay = torch.from_numpy(rows_np).to(dev)
+        if label == "unaligned":
+            spay = spay[1:]
+        got = kernels.dp_backtrack(spay)
+        want = OPT.dp_backtrack_plain(spay)
+        errs[label] = max(max_abs_err(got[0], want[0]),
+                          max_abs_err(got[1], want[1]))
     g, v = kernels.dp_backtrack(pay)
     g_plain, v_plain = OPT.dp_backtrack_plain(pay)
     torch.cuda.synchronize()
-    err = max(max_abs_err(g, g_plain), max_abs_err(v, v_plain))
+    errs["real"] = max(max_abs_err(g, g_plain), max_abs_err(v, v_plain))
     rows["K4"] = dict(
         name="dp_backtrack", route="cuda",
-        source="brotli_tpu_torch/csrc/dp_scan.cu",
+        source="brotli_tpu_torch/csrc/dp_backtrack.cu",
         replaces="brotli_tpu/ops/optimal_jax.py:494",
-        max_abs_err=err,
+        max_abs_err=max(errs.values()),
         ms=cuda_ms(lambda: kernels.dp_backtrack(pay), 10),
+        device_ms=cuda_ms(lambda: kernels.dp_backtrack(pay), 10,
+                          queued=True),
         plain_ms=cuda_ms(lambda: OPT.dp_backtrack_plain(pay), 2),
         nbytes=(pay.numel() + g.numel() + v.numel()) * 4,
         nops=nb * OPT.B * 8)
-    print(f"[3] K4 dp_backtrack: max_abs_err {err}", flush=True)
-    del pd, cs, litq, pay, g, v, g_plain, v_plain, pay_plain
+    print(f"[3] K4 dp_backtrack: max_abs_err {errs}", flush=True)
+    del pd, cs, litq, pay, g, v, g_plain, v_plain, pay_plain, spay, got
+    del want, k4_cases
     torch.cuda.empty_cache()
 
     # K2 on the real skip vector of the q5 matcher's second segment of
@@ -269,6 +353,8 @@ def main():
         max_abs_err=max(errs.values()),
         ms=cuda_ms(lambda: kernels.chain_select_launch(skip, nk,
                                                        start_real), 10),
+        device_ms=cuda_ms(lambda: kernels.chain_select_launch(
+            skip, nk, start_real), 10, queued=True),
         plain_ms=cuda_ms(lambda: chain.chain_select_plain(skip, nk,
                                                           start_real), 1),
         nbytes=2 * nk * 4,  # skip read once, sel written once
@@ -277,13 +363,15 @@ def main():
 
     for k, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
-        print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms, plain "
+        print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms one call "
+              f"(the card alone {r['device_ms']:.3f} ms), plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) at n={nk if k == 'K2' else n} [{card}]")
     mhz = float(smi("clocks.max.sm").split()[0])
-    print(f"    K4 dp_backtrack: dependent-chain floor "
-          f"{OPT.B * SMEM_LOAD_CYCLES / mhz * 1e-3:.3f} ms ({OPT.B} "
-          f"steps of {SMEM_LOAD_CYCLES} cycles at {mhz:.0f} MHz)")
+    print(f"    K4 dp_backtrack: bound by bytes "
+          f"({rows['K4']['bound_ms']:.3f} ms); its dependent steps: 5 "
+          f"doubling rounds, a chain of at most {OPT.B // 32} checkpoints "
+          f"32 steps apart, then 32 steps from each checkpoint")
     steps = 2 * kernels.CHAIN_L + nk // kernels.CHAIN_L
     print(f"    K2 chain_select: dependent-chain floor of its three passes "
           f"{steps * SMEM_LOAD_CYCLES / mhz * 1e-3:.3f} ms ({steps} steps "
@@ -357,6 +445,7 @@ def main():
                          source=r["source"], replaces=r["replaces"],
                          launches=path_launches[r["name"]],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
+                         device_ms=r["device_ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kern}))

@@ -156,6 +156,30 @@ def _synthetic_slots(seed, nslots=29, n=2 * B):
             copyq.astype(np.int32))
 
 
+def _extreme_slots(nslots, seed=3, n=2 * B):
+    """The edge cases of K1's scatter: ties across slots, lengths over
+    -64..63 (pd with bit 31 set), dictionary lengths 64..127 (which wrap
+    to negative), costs at and above 1 << 28 and negative ones, and live
+    distances on dead slots."""
+    rng = np.random.default_rng(seed)
+    ls = rng.integers(-64, W, (nslots, n))
+    ls[nslots - 2] = rng.integers(0, 128, n)
+    ds = rng.integers(0, 1 << 25, (nslots, n))
+    cs = rng.choice([-7, 0, 5, 5, 9, (1 << 28) - 1, 1 << 28, (1 << 28) + 1,
+                     (1 << 31) - 1], (nslots, n))
+    pd = ((ls << 25) | ds) & 0xFFFFFFFF
+    copyq = rng.integers(0, 300, W)
+    copyq[:2] = 1 << 28
+    return (pd.astype(np.uint32).view(np.int32), cs.astype(np.int32),
+            copyq.astype(np.int32))
+
+
+def _slots_case(case):
+    if case.startswith("extreme"):
+        return _extreme_slots(int(case[len("extreme"):]))
+    return _synthetic_slots(int(case[-1]))
+
+
 @pytest.fixture(scope="module")
 def seg_tables(host):
     """pd_flat, cs_flat and litq of the text segment [2 SEG, 3 SEG)."""
@@ -166,7 +190,8 @@ def seg_tables(host):
         p["seed_dist"], p["dict_pos"], p["dict_pay"], p["seg_base"])
 
 
-@pytest.mark.parametrize("case", ["real", "synthetic0", "synthetic1"])
+@pytest.mark.parametrize("case", ["real", "synthetic0", "synthetic1",
+                                  "extreme2", "extreme29", "extreme32"])
 def test_suffix_min_matches_pallas(seg_tables, case):
     if case == "real":
         p, (pd, cs, _) = seg_tables
@@ -178,7 +203,7 @@ def test_suffix_min_matches_pallas(seg_tables, case):
         cs = cs[:, k * B:(k + 2) * B].contiguous().numpy()
         copyq = p["copyq"].numpy()
     else:
-        pd, cs, copyq = _synthetic_slots(int(case[-1]))
+        pd, cs, copyq = _slots_case(case)
     port = O.suffix_min(torch.from_numpy(pd), torch.from_numpy(cs),
                         torch.from_numpy(copyq))
     assert port.shape == (pd.shape[1], 2 * W) and port.dtype == torch.int32
@@ -190,6 +215,52 @@ def test_suffix_min_chunking_is_invisible():
     args = [torch.from_numpy(x) for x in (pd, cs, copyq)]
     _eq(O.suffix_min_plain(*args, chunk=1000).numpy(),
         O.suffix_min_plain(*args).numpy())
+
+
+def _suffix_model(pd, cs, copyq):
+    """csrc/suffix_min.cu's algorithm in numpy: each live non-dictionary
+    slot's key (cost, slot << 25 | dist) scattered with a min into
+    bucket[len], one suffix-min over the columns (none for columns 0
+    and 1), the dictionary key folded into column len alone, then the
+    decode of M and P."""
+    inf, none = O.EDGE_INF, O.EDGE_INF << 32
+    nslots, n = pd.shape
+    ln = pd >> 25
+    slot = np.arange(nslots)[:, None]
+    key = (cs.astype(np.int64) << 32) | (slot << 25) | (pd & O.MASK25)
+    live = (cs < inf) & (ln >= 2)
+    dslot = nslots - 2
+    bucket = np.full((n, W), none, np.int64)
+    for s in range(nslots):
+        idx = np.nonzero(live[s])[0]
+        if s != dslot:  # one key per position and slot: no collisions
+            cur = bucket[idx, ln[s, idx]]
+            bucket[idx, ln[s, idx]] = np.minimum(cur, key[s, idx])
+    acc = np.minimum.accumulate(bucket[:, ::-1], axis=1)[:, ::-1].copy()
+    acc[:, :2] = none
+    idx = np.nonzero(live[dslot])[0]
+    cols = ln[dslot, idx]
+    acc[idx, cols] = np.minimum(acc[idx, cols], key[dslot, idx])
+    cost = (acc >> 32).astype(np.int32)
+    hit = cost < inf
+    col = np.arange(W, dtype=np.int32)[None, :]
+    m = np.where(hit, cost + copyq[None, :W], O.NO_EDGE)  # int32 wrap
+    p = np.where(hit, (col << 25) | (acc & O.MASK25).astype(np.int32), 0)
+    return np.concatenate([m, p], 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["extreme2", "extreme29", "extreme32",
+                                  "synthetic0"])
+def test_suffix_min_model_matches_plain(case):
+    """The per-length scatter with one suffix-min gives the plain
+    version's rows bit for bit, ties, clamps and dead slots included."""
+    pd, cs, copyq = _slots_case(case)
+    with np.errstate(over="ignore"):
+        model = _suffix_model(pd, cs, copyq)
+    plain = O.suffix_min_plain(torch.from_numpy(pd), torch.from_numpy(cs),
+                               torch.from_numpy(copyq))
+    _eq(model, plain.numpy())
+    assert (model[:, :W] != O.NO_EDGE).any()
 
 
 # ---------------------------------------------------------------------
@@ -242,16 +313,89 @@ def test_scan_matches_synthetic(seed):
     _eq(port.numpy(), _scan_jax(mp, litq))
 
 
+def _paymat(fill, seed=0, nb=2):
+    """Payload rows for K4. "ones": every length 0 or 1, the longest walk
+    (B positions); "63": every length W-1, the shortest; "random":
+    lengths over -64..63 (bit 31 set below 0), steps that overrun the
+    block start into negative positions; an int seed: the original mix
+    of lengths up to W-1."""
+    rng = np.random.default_rng(seed)
+    if fill == "ones":
+        ln = rng.integers(0, 2, (nb, B + 1))
+    elif fill == "63":
+        ln = np.full((nb, B + 1), W - 1)
+    elif fill == "random":
+        ln = rng.integers(-64, W, (nb, B + 1))
+    else:
+        ln = rng.choice([0, 1, 2, 3, 17, W - 1], (nb, B + 1))
+    pay = ((ln << 25) | rng.integers(0, 1 << 25, (nb, B + 1))) & 0xFFFFFFFF
+    return pay.astype(np.uint32).view(np.int32)
+
+
 @pytest.mark.parametrize("seed,npos", [(0, 2 * B - 3), (1, 3000),
-                                       (2, 0)])
+                                       (2, 0), ("ones", 2 * B - 3),
+                                       ("63", 2 * B - 3),
+                                       ("random", 2 * B - 3)])
 def test_backtrack_matches_synthetic(seed, npos):
     """Random payloads, lengths up to W-1 at every position: steps that
-    overrun the block start index from the row's end, as in JAX."""
-    rng = np.random.default_rng(seed)
-    nb = 2
-    ln = rng.choice([0, 1, 2, 3, 17, W - 1], (nb, B + 1))
-    pay = (ln << 25) | rng.integers(0, 1 << 25, (nb, B + 1))
-    _finish_check(pay.astype(np.int32), npos)
+    overrun the block start index from the row's end, as in JAX; and
+    the all-ones, all-63 and signed-length chains."""
+    if isinstance(seed, int):
+        pay = _paymat(None, seed)
+    else:
+        pay = _paymat(seed)
+    _finish_check(pay, npos)
+
+
+def _backtrack_model(paymat, log_s=5):
+    """csrc/dp_backtrack.cu's algorithm in numpy. log_s rounds of pointer
+    doubling (J_0 = next, J_{r+1} = J_r o J_r; positions <= 0 are fixed
+    points) give J_S = next^S, S = 2^log_s; the checkpoints c_{i+1} =
+    J_S(c_i) chain from c_0 = B; then walk[S i + j] = next^j(c_i).
+    Returns gsrc and vals in the (B, nb) layout."""
+    nb = paymat.shape[0]
+    s = 1 << log_s
+    rows = np.arange(nb)[:, None]
+
+    def step(q):
+        ln = paymat[rows, np.maximum(q, 0)] >> 25
+        return np.where(q > 0, q - np.maximum(ln, 1), q)
+
+    jmp = step(np.broadcast_to(np.arange(1, B + 1), (nb, B)))  # entry p - 1
+    for _ in range(log_s):
+        hop = np.take_along_axis(jmp, np.maximum(jmp, 1) - 1, 1)
+        jmp = np.where(jmp > 0, hop, jmp)
+    ck = np.empty((nb, B // s), np.int64)
+    c = np.full((nb, 1), B)
+    for i in range(B // s):
+        ck[:, i] = c[:, 0]
+        c = np.where(c > 0, np.take_along_axis(jmp, np.maximum(c, 1) - 1, 1),
+                     c)
+    walk = np.empty((nb, B), np.int64)
+    p = ck
+    for j in range(s):
+        walk[:, j::s] = p
+        p = step(p)
+    v = np.take_along_axis(paymat, np.where(walk < 0, walk + B + 1, walk),
+                           1)
+    ln = v >> 25
+    src = walk - np.where(walk > 0, np.maximum(ln, 1), 0)
+    start = (ln >= 2) & (walk > 0) & (src >= 0)
+    gsrc = np.where(start, src + (np.arange(nb) * B)[:, None], -1)
+    return gsrc.T.astype(np.int32), v.T.astype(np.int32)
+
+
+@pytest.mark.parametrize("fill", ["ones", "63", "random", "mix"])
+def test_backtrack_model_matches_plain(fill):
+    """The doubled walk with its checkpoints gives the plain version's
+    (B, nb) tables bit for bit, fixed points at and below 0 included,
+    for the kernel's 32-step checkpoints and for 8-step ones."""
+    pay = _paymat(None if fill == "mix" else fill, nb=3)
+    pg, pv = O.dp_backtrack_plain(torch.from_numpy(pay))
+    for log_s in (5, 3):
+        gsrc, vals = _backtrack_model(pay, log_s)
+        _eq(gsrc, pg.numpy())
+        _eq(vals, pv.numpy())
 
 
 # ---------------------------------------------------------------------
