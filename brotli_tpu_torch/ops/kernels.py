@@ -28,9 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 W = 64
 B = 4096
-CHAIN_L = 4096      # chain_select.cu's chunk
-CHAIN_CAP = 16      # largest skip chain_select.cu takes
-CHAIN_MAX_N = 3072 * CHAIN_L
+CHAIN_L = 4096      # chain_select.cu's chunk: n is a multiple of it
+CHAIN_S = 256       # its sub-chunk: the longest walk of one thread
 
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
             "chain_select": 0}
@@ -44,8 +43,8 @@ _SIGNATURES = {
                        _P],
     "btt_dp_scan": [_P, _P, _P, ctypes.c_int, _P],
     "btt_dp_backtrack": [_P, _P, _P, ctypes.c_int, _P],
-    "btt_chain_select": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                         ctypes.c_longlong, _P],
+    "btt_chain_select": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                         _P],
 }
 
 
@@ -177,35 +176,23 @@ def dp_backtrack(paymat):
 def chain_select_launch(skip, n, start):
     """K2 on the card, without reading its error flag: int32 skip (n,)
     -> (sel int32 (n,), err int32 (1,)), err non-zero when a skip lay
-    outside [1, 16]. Nothing waits for the card here."""
+    outside [1, 16]. One launch; sel and one scratch allocation (two
+    64-bit descriptor words a chunk, the ticket and err, zeroed by the C
+    side). Nothing waits for the card here."""
     _check(skip, "skip", 1)
-    if skip.shape[0] != n or n % CHAIN_L or not 0 < n <= CHAIN_MAX_N:
+    if skip.shape[0] != n or n % CHAIN_L or not 0 < n < 1 << 31:
         raise ValueError(f"chain_select: n must be a multiple of {CHAIN_L} "
-                         f"up to {CHAIN_MAX_N} and equal skip's length")
+                         f"below 2**31 and equal skip's length")
     if start < 0:
         raise ValueError("chain_select: start must be >= 0")
     dev = skip.device
+    nchunks = n // CHAIN_L
     sel = torch.empty(n, dtype=torch.int32, device=dev)
-    exits = torch.empty(n // CHAIN_L * CHAIN_CAP, dtype=torch.uint8,
-                        device=dev)
-    entry = torch.empty(n // CHAIN_L, dtype=torch.int32, device=dev)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)  # start_exit, err
+    scratch = torch.empty(4 * nchunks + 2, dtype=torch.int32, device=dev)
     _launch("chain_select", "btt_chain_select", dev, skip.data_ptr(),
-            sel.data_ptr(), exits.data_ptr(), entry.data_ptr(),
-            flags.data_ptr(), flags[1:].data_ptr(), n, int(start))
+            sel.data_ptr(), scratch.data_ptr(), n, int(start))
     LAUNCHES["chain_select"] += 1
-    return sel, flags[1:]
-
-
-def chain_select(skip, n, start):
-    """K2 on the card: the greedy chain from `start` over int32 skip
-    (n,) with 1 <= skip <= 16 -> int32 sel (n,), 1 where the chain takes
-    a match. Raises ValueError when a skip lay outside [1, 16]; reading
-    that flag waits for the launch to finish."""
-    sel, err = chain_select_launch(skip, n, start)
-    if int(err.item()):
-        raise ValueError("chain_select: a skip lies outside [1, 16]")
-    return sel
+    return sel, scratch[-1:]
 
 
 def reset_launches() -> None:

@@ -114,16 +114,17 @@ def match_block(data, npos: int, max_distance: int, num_candidates: int = 2,
 
     data: uint8 (n,) on the device. `start`: first match-eligible
     position (positions before it are window history). Returns (count,
-    packed): count an int64 scalar tensor, packed int64 (2, n // 4)
+    packed, err): count an int64 scalar tensor, packed int64 (2, n // 4)
     holding uint32 values, packed[0, :count] the match positions and
     packed[1, :count] = len << 25 | dist, in position order; the rest
     holds the other positions in order, as the JAX package's sort
-    leaves them."""
+    leaves them. err, an int64 scalar tensor, is K2's error flag
+    (non-zero when a skip lay outside [1, 16]), unread."""
     n = data.shape[0]
     best_len, best_dist, skip = match_skip(data, npos, max_distance,
                                            num_candidates)
     # greedy parse: the chain walk (K2 on the card)
-    selm = chain_select(skip.to(torch.int32), n, start)
+    selm, err = chain_select(skip.to(torch.int32), n, start)
     pos = torch.arange(n, dtype=torch.int64, device=data.device)
     taken = selm > 0
     key = torch.where(taken, pos, u32.MASK32)
@@ -131,24 +132,28 @@ def match_block(data, npos: int, max_distance: int, num_candidates: int = 2,
     key_c, order = torch.sort(key, stable=True)
     nslots = n // MIN_MATCH
     count = taken.sum()
-    return count, torch.stack([key_c[:nslots], packed[order[:nslots]]])
+    return (count, torch.stack([key_c[:nslots], packed[order[:nslots]]]),
+            err[0].to(torch.int64))
 
 
 def _run_segment(padded: np.ndarray, npos: int, max_distance: int,
                  ncand: int, start: int, device):
     """Queue one segment on the device (nothing waits for it); returns
-    (count, packed, event) handles, the event recorded after it."""
+    (count, err, packed, event) handles, the event recorded after it."""
     dev_data = torch.from_numpy(padded).to(device)
-    count, out = match_block(dev_data, npos, max_distance,
-                             num_candidates=ncand, start=start)
-    return count, out, fetch.mark(device)
+    count, out, err = match_block(dev_data, npos, max_distance,
+                                  num_candidates=ncand, start=start)
+    return count, err, out, fetch.mark(device)
 
 
 def _collect_segment(handles):
     """Read back one segment's compacted matches (blocking until the
-    segment is done, and only it)."""
-    count, out, ev = handles
-    cnt = int(fetch.fetch_after([ev], [count])[0])
+    segment is done, and only it). Raises ValueError when K2 met a skip
+    outside [1, 16]."""
+    count, err, out, ev = handles
+    cnt, bad = fetch.fetch_after([ev], [count, err]).tolist()
+    if bad:
+        raise ValueError("chain_select: a skip lies outside [1, 16]")
     if cnt == 0:
         z = np.zeros(0, np.int64)
         return z, z, z

@@ -9,8 +9,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      and K4 on the real inputs of the corpus's first 4 MiB DP segment,
      K1 and K4 also on seeded inputs at the same shapes (K4 also with
      a part-full last CTA and with rows off the 16-byte grid), K2 on the
-     real skip vector of the q5 matcher's second 8 MiB segment and on
-     seeded vectors;
+     real skip vector of the q5 matcher's second 8 MiB segment (once,
+     then 100 times in a row, every result the same) and on seeded
+     vectors (all 1, all 16, uniform, alternating 16/1; from 0, a chunk
+     boundary, a sub-chunk's last offset, n - 1 and n; two at 1 Mi, one
+     off the 16-byte grid);
   4. the q11 path: compress the 16 MiB corpus at q11 on the card three
      times: a first run, a timed run (stage trace off; kernel launches
      and peak device memory counted; decoded back exactly) and a traced
@@ -43,8 +46,8 @@ import torch
 PEAK_BYTES = 3.35e12
 PEAK_OPS32 = 67e12
 # latency of one shared-memory load on Hopper, in SM cycles (published
-# microbenchmarks put it near 30): each dependent step of K2's chain
-# walks waits on one, so their steps at the top SM clock are its floor
+# microbenchmarks put it near 30): each dependent step of K2's walks
+# waits on one
 SMEM_LOAD_CYCLES = 30
 # ~1 ms at the H100's SM clock: longer than any wrapper's launch gap
 SPIN_CYCLES = 2_000_000
@@ -317,27 +320,51 @@ def main():
 
     # K2 on the real skip vector of the q5 matcher's second segment of
     # the 16 MiB corpus (buffer [0, 8 MiB), start 4 Mi), then on seeded
-    # vectors; every comparison is bitwise
+    # vectors from the start offsets that the numpy model of its design
+    # in tests/test_torch_matcher.py covers (a chunk boundary, a
+    # sub-chunk's last offset, n - 1, n), and on one at 1 Mi; every
+    # comparison is bitwise
     nk = PM._bucket(PM.SEG_BYTES)
     buf = torch.from_numpy(arr[:nk].copy()).to(dev)
     _, _, skip = PM.match_skip(buf, nk - 3, maxd, 4)
     skip = skip.to(torch.int32)
     del buf
     start_real = PM.SEG_BYTES // 2
+    cl, cs_ = kernels.CHAIN_L, kernels.CHAIN_S
+    edges = (0, 12345, 100 * cl, 100 * cl + 5 * cs_ + cs_ - 1, nk - 1, nk)
     rng = np.random.default_rng(0)
     cases = [("real", skip, start_real)]
-    for fill in ("1", "16", "uniform"):
-        vec = (rng.integers(1, 17, nk) if fill == "uniform"
-               else np.full(nk, int(fill)))
+    for fill in ("1", "16", "uniform", "alternating"):
+        if fill == "uniform":
+            vec = rng.integers(1, 17, nk)
+        elif fill == "alternating":
+            vec = np.where(np.arange(nk) % 2 == 0, 16, 1)
+        else:
+            vec = np.full(nk, int(fill))
         vec = torch.from_numpy(vec.astype(np.int32)).to(dev)
-        cases += [(f"{fill}@{st}", vec, st) for st in (0, 12345)]
+        # the all-1 walk visits every position: its plain walk is slow
+        starts = (0, 12345, nk - 1, nk) if fill == "1" else edges
+        cases += [(f"{fill}@{st}", vec, st) for st in starts]
+    # 1 Mi, and the same length off the 16-byte grid (the scalar staging)
+    vec = torch.from_numpy(rng.integers(1, 17, (1 << 20) + 1)
+                           .astype(np.int32)).to(dev)
+    cases += [(f"uniform1Mi@{st}", vec[:1 << 20], st)
+              for st in (0, 7 * cl + 3 * cs_ + cs_ - 1)]
+    cases += [("unaligned1Mi@12345", vec[1:], 12345)]
     errs, taken = {}, {}
     for label, vec, st in cases:
-        got = kernels.chain_select(vec, nk, st)
-        want = chain.chain_select_plain(vec, nk, st)
-        torch.cuda.synchronize()
-        errs[label] = max_abs_err(got, want)
+        got, flag = kernels.chain_select_launch(vec, vec.shape[0], st)
+        want = chain.chain_select_plain(vec, vec.shape[0], st)
+        errs[label] = max_abs_err(got, want) + int(flag.item())
         taken[label] = int(want.sum())
+    # the real case 100 times in a row: a race in the look-back would
+    # show as a result that differs
+    want = chain.chain_select_plain(skip, nk, start_real)
+    errs["real x100"] = 0
+    for _ in range(100):
+        got, flag = kernels.chain_select_launch(skip, nk, start_real)
+        errs["real x100"] = max(errs["real x100"], max_abs_err(got, want),
+                                int(flag.item()))
     print(f"[3] K2 chain_select: max_abs_err {errs}; matches taken "
           f"{taken}", flush=True)
     # a skip outside [1, 16] sets the kernel's error flag
@@ -372,10 +399,15 @@ def main():
           f"({rows['K4']['bound_ms']:.3f} ms); its dependent steps: 5 "
           f"doubling rounds, a chain of at most {OPT.B // 32} checkpoints "
           f"32 steps apart, then 32 steps from each checkpoint")
-    steps = 2 * kernels.CHAIN_L + nk // kernels.CHAIN_L
-    print(f"    K2 chain_select: dependent-chain floor of its three passes "
-          f"{steps * SMEM_LOAD_CYCLES / mhz * 1e-3:.3f} ms ({steps} steps "
-          f"of {SMEM_LOAD_CYCLES} cycles at {mhz:.0f} MHz)")
+    steps = kernels.CHAIN_S + 2 * 16
+    print(f"    K2 chain_select: bound by bytes "
+          f"({rows['K2']['bound_ms']:.3f} ms); the dependent chain of one "
+          f"chunk: {steps} shared-memory loads ({kernels.CHAIN_S} in the "
+          f"sub-chunk walk, 16 for the chunk map, 16 for the entries), "
+          f"{steps * SMEM_LOAD_CYCLES / mhz * 1e-3:.4f} ms at "
+          f"{SMEM_LOAD_CYCLES} cycles each and {mhz:.0f} MHz, plus one L2 "
+          f"round trip for each look-back round of 32 predecessors; "
+          f"chunks overlap")
     bad = [k for k, r in rows.items() if r["max_abs_err"] != 0]
     if bad:
         sys.exit(f"chip_smoke: kernels disagree with their plain "

@@ -363,7 +363,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.dp_backtrack(torch.zeros((1, 4097), dtype=torch.int32))
     with pytest.raises(RuntimeError, match="CUDA"):
-        kernels.chain_select(torch.ones(4096, dtype=torch.int32), 4096, 0)
+        kernels.chain_select_launch(torch.ones(4096, dtype=torch.int32),
+                                    4096, 0)
     assert kernels.LAUNCHES == {"suffix_min": 0, "dp_scan": 0,
                                 "dp_backtrack": 0, "chain_select": 0}
 

@@ -3,6 +3,8 @@ on the CPU.
 
   (a) the chain walk: `chain_select_plain` against `chain_select_host`,
       `chain_select_xla` and the Pallas kernel itself in interpret mode;
+      a numpy model of K2's design (csrc/chain_select.cu) against both;
+      the error flag for skips outside [1, 16];
   (b) `match_block`: `count` and the whole `packed` table;
   (c) `find_matches_device` against `find_matches_jax`'s device branch,
       on one segment and, with shrunk buckets, on several segments with
@@ -113,8 +115,9 @@ def test_chain_select_plain_matches_jax(start, monkeypatch):
         np.testing.assert_array_equal(got, CP.chain_select_host(skip))
     assert got.sum() > 1000
     # the wrapper takes the plain version for a CPU tensor
-    np.testing.assert_array_equal(
-        chain.chain_select(torch.from_numpy(skip), n, start).numpy(), got)
+    sel, err = chain.chain_select(torch.from_numpy(skip), n, start)
+    np.testing.assert_array_equal(sel.numpy(), got)
+    assert err.tolist() == [0]
 
 
 @pytest.mark.parametrize("fill,start", [(1, 0), (16, 5), (16, 1 << 20)])
@@ -128,6 +131,196 @@ def test_chain_select_plain_edges(fill, start):
     if fill > 1:
         want[start:n:fill] = 1
     np.testing.assert_array_equal(sel, want)
+
+
+# K2's design (csrc/chain_select.cu) as a numpy model: sub-chunk walks
+# from the 16 entry offsets, nibble-packed maps, and a decoupled
+# look-back with chunks interleaved in a seeded random order
+
+_AGG, _INCL, _NOTV = 1, 2, 3  # descriptor kinds, as in the kernel
+_NIBBLES = 0x1111111111111111
+
+
+def _nib(m, x):
+    return (m >> 4 * x) & 15
+
+
+def _pack(f):
+    return sum(int(x) << 4 * i for i, x in enumerate(f))
+
+
+def _compose(g, f):
+    """The packed map g o f."""
+    return _pack([_nib(g, _nib(f, i)) for i in range(16)])
+
+
+def _k2_walks(sk, lo, p, S):
+    """Walk every walker i from position p[i] to the end of its
+    sub-chunk [lo[i], lo[i] + S), all at once. Returns the exit offsets
+    into the next sub-chunk and the visit masks, (walkers, S // 8) bytes
+    (the kernel's 32-bit words, little-endian): bit (p - lo) & 7 of byte
+    (p - lo) >> 3 set where the walk visits p."""
+    p = p.copy()
+    seen = np.zeros((len(p), S), bool)
+    live = np.nonzero(p < lo + S)[0]
+    while len(live):
+        seen[live, p[live] - lo[live]] = True
+        p[live] += sk[p[live]]
+        live = live[p[live] < lo[live] + S]
+    return p - lo - S, np.packbits(seen, axis=1, bitorder="little")
+
+
+def _k2_model(skip, start, L, S, window=32, seed=0):
+    """-> (sel, err, look-back rounds per chunk) of the kernel's design
+    with chunks of L positions, sub-chunks of S and look-back rounds of
+    `window` predecessors."""
+    n = len(skip)
+    nch, nsub = n // L, L // S
+    out = (skip < 1) | (skip > 16)
+    sk = np.where(out, 1, skip).astype(np.int64)
+    sc = start // L
+    c, s, o = np.meshgrid(np.arange(nch), np.arange(nsub), np.arange(16),
+                          indexing="ij")
+    lo = (c * L + s * S).ravel()
+    p = lo + o.ravel()
+    if sc < nch:
+        # in the chunk that holds start, walker (s0, 0) walks from start
+        s0 = (start - sc * L) // S
+        p[(sc * nsub + s0) * 16] = start
+    exits, masks = _k2_walks(sk, lo, p, S)
+    ex = exits.reshape(nch, nsub, 16)
+    masks = masks.reshape(nch, nsub, 16, -1)
+
+    def chain_from(cc, x, first=0):
+        for s_ in range(first, nsub):
+            x = ex[cc, s_, x]
+        return int(x)
+
+    maps = [_pack([chain_from(cc, o_) for o_ in range(16)])
+            for cc in range(nch)]
+    kind = np.zeros(nch, np.int64)  # a descriptor's word 0, its kind
+    agg, entry, rounds = [0] * nch, {}, {}
+
+    def chunk(cc):  # one CTA; each yield lets the others run
+        if cc < sc:
+            kind[cc] = _NOTV
+            return
+        if cc == sc:
+            kind[cc] = _INCL | chain_from(cc, int(ex[cc, s0, 0]), s0 + 1) << 8
+            return
+        agg[cc], kind[cc] = maps[cc], _AGG
+        yield
+        acc, hi, rounds[cc] = list(range(16)), cc - 1, 0
+        while True:
+            qs = [q for q in range(hi, hi - window, -1) if q >= sc]
+            while (kind[qs] == 0).any():
+                yield  # spin
+            rounds[cc] += 1
+            incl = [j for j, q in enumerate(qs) if kind[q] & 3 == _INCL]
+            ms = [agg[q] if kind[q] & 3 == _AGG
+                  else (int(kind[q]) >> 8) * _NIBBLES for q in qs]
+            t = list(range(16))
+            for j in range(incl[0] if incl else len(qs) - 1, -1, -1):
+                t = [_nib(ms[j], x) for x in t]
+            acc = [acc[x] for x in t]
+            if incl:
+                assert len(set(acc)) == 1  # a constant map: the entry
+                break
+            hi -= window
+            yield
+        entry[cc] = acc[0]
+        kind[cc] = _INCL | _nib(maps[cc], acc[0]) << 8
+
+    # tickets: the visited chunks first, in order, then the others
+    live = [chunk(cc) for cc in [*range(sc, nch), *range(min(sc, nch))]]
+    rng = np.random.default_rng(seed)
+    while live:
+        k = int(rng.integers(len(live)))
+        try:
+            next(live[k])
+        except StopIteration:
+            live.pop(k)
+    assert all(kind[:min(sc, nch)] == _NOTV)
+
+    seen = np.zeros(n, np.int32)
+    for cc in range(sc, nch):
+        x, first = entry.get(cc, 0), 0
+        if cc == sc:
+            first = s0
+        for s_ in range(first, nsub):
+            a = cc * L + s_ * S
+            seen[a:a + S] = np.unpackbits(masks[cc, s_, x],
+                                          bitorder="little")[:S]
+            x = ex[cc, s_, x]
+        assert kind[cc] == _INCL | int(x) << 8
+    return seen * (sk > 1), int(out.any()), rounds
+
+
+K2_N = 2 * CP.SEG
+# 0; a chunk boundary; a sub-chunk's last offset (at both sizes below);
+# the last position; past the end
+K2_STARTS = [0, 3 * 4096, 2 * 4096 + 5 * 256 + 255, K2_N - 1, K2_N]
+
+
+def _k2_skips(fill):
+    if fill == "uniform":
+        return _skips(11, K2_N)
+    if fill == "alternating":
+        return np.where(np.arange(K2_N) % 2 == 0, 16, 1).astype(np.int32)
+    return np.full(K2_N, int(fill), np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_reference(fill, start):
+    """The plain walk, held against the Pallas kernel in interpret
+    mode."""
+    skip = _k2_skips(fill)
+    plain = chain.chain_select_plain(torch.from_numpy(skip), K2_N,
+                                     start).numpy()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(CP.pl, "pallas_call", functools.partial(
+            CP.pl.pallas_call, interpret=True))
+        pallas = CP.chain_select.__wrapped__(jnp.asarray(skip), K2_N, start)
+    np.testing.assert_array_equal(plain, np.asarray(pallas))
+    return skip, plain
+
+
+@pytest.mark.parametrize("L,S", [(4096, 256), (256, 16)])
+@pytest.mark.parametrize("start", K2_STARTS)
+@pytest.mark.parametrize("fill", ["1", "16", "uniform", "alternating"])
+def test_chain_select_model_matches(fill, start, L, S):
+    """The design of csrc/chain_select.cu, at its real chunk (L = 4096,
+    sub-chunks of 256) and shrunk (L = 256, sub-chunks of 16), with
+    look-back rounds of 32 predecessors (the kernel's warp) and of one,
+    gives the plain walk's and the Pallas kernel's sel bit for bit."""
+    skip, want = _k2_reference(fill, start)
+    for window in (32, 1):
+        sel, err, rounds = _k2_model(skip, start, L, S, window, seed=start)
+        np.testing.assert_array_equal(sel, want)
+        assert err == 0
+        if window == 1 and len(rounds) > 16:
+            # some chunk composed aggregates before an inclusive one
+            assert max(rounds.values()) > 1
+    # the packed maps compose associatively
+    rng = np.random.default_rng(start)
+    f, g, h = (_pack(rng.integers(0, 16, 16)) for _ in range(3))
+    assert _compose(h, _compose(g, f)) == _compose(_compose(h, g), f)
+    assert _compose(f, 3 * _NIBBLES) == _nib(f, 3) * _NIBBLES
+
+
+def test_chain_select_flags_bad_skips():
+    """A skip of 0 or 17 sets the error flag, on the CPU as in the
+    model (which walks it as 1, as the kernel does)."""
+    skip = _skips(5, 4096 * 4)
+    for bad in (0, 17):
+        skip2 = skip.copy()
+        skip2[5000] = bad
+        sel, err = chain.chain_select(torch.from_numpy(skip2), len(skip2))
+        assert err.dtype == torch.int32 and err.tolist() == [1]
+        msel, merr, _ = _k2_model(skip2, 0, 4096, 256)
+        assert merr == 1
+        if bad == 0:  # both walk it as 1
+            np.testing.assert_array_equal(msel, sel.numpy())
 
 
 # ---------------------------------------------------------------------
@@ -146,9 +339,9 @@ def test_match_block_matches_jax(device_branch, corpus, b, ncand, start,
     count, packed = MJ.match_block(
         jnp.asarray(padded), jnp.int32(npos), jnp.int32(MAXD),
         num_candidates=ncand, start=jnp.int32(start))
-    pc, pp = PM.match_block(torch.from_numpy(padded), npos, MAXD, ncand,
-                            start)
-    assert int(pc) == int(count) > 1000
+    pc, pp, perr = PM.match_block(torch.from_numpy(padded), npos, MAXD,
+                                  ncand, start)
+    assert int(pc) == int(count) > 1000 and int(perr) == 0
     assert pp.shape == (2, b // 4) and pp.dtype == torch.int64
     np.testing.assert_array_equal(pp.numpy(),
                                   np.asarray(packed).astype(np.int64))
@@ -198,6 +391,30 @@ def test_find_matches_device_matches_jax(device_branch, corpus, quality,
     assert np.all(m[lz] - dists[lz] >= 0) and np.all(np.diff(m) > 0)
 
 
+def test_find_matches_device_raises_on_bad_skip(monkeypatch, corpus):
+    """K2's error flag is read with the segment's count, at the
+    collect: one skip of 0 from match_skip raises there."""
+    orig = PM.match_skip
+    collected = []
+
+    def bad_skip(*a, **k):
+        best_len, best_dist, skip = orig(*a, **k)
+        skip = skip.clone()
+        skip[1000] = 0
+        return best_len, best_dist, skip
+
+    def collect(handles):
+        collected.append(1)
+        return orig_collect(handles)
+
+    orig_collect = PM._collect_segment
+    monkeypatch.setattr(PM, "match_skip", bad_skip)
+    monkeypatch.setattr(PM, "_collect_segment", collect)
+    with pytest.raises(ValueError, match=r"outside \[1, 16\]"):
+        PM.find_matches_device(corpus[:1 << 16], MAXD, 5, device="cpu")
+    assert collected == [1]
+
+
 def test_find_matches_device_needs_cuda(monkeypatch, corpus):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -214,8 +431,8 @@ def test_extend_capped_matches(corpus):
     b = 1 << 19
     padded = np.zeros(b, np.uint8)
     padded[:len(arr)] = arr
-    count, packed = PM.match_block(torch.from_numpy(padded),
-                                   len(arr) - 3, MAXD, 4, 0)
+    count, packed, _ = PM.match_block(torch.from_numpy(padded),
+                                      len(arr) - 3, MAXD, 4, 0)
     cnt = int(count)
     m = packed[0, :cnt].numpy()
     lens = packed[1, :cnt].numpy() >> 25
