@@ -1,12 +1,13 @@
 """Public API of the port: one-shot `compress` through the q10/q11
-device optimal-parse pipeline, `decompress` through the native
-decoder, and one `error` type (the brotli_tpu.api surface, without
-the streaming classes yet). The q<=9 device encode is
+device optimal-parse pipeline, `decompress` through the native decoder
+or the device decoder, and one `error` type (the brotli_tpu.api
+surface, without the streaming classes yet). The q<=9 device encode is
 `parallel.shard.compress_sharded`."""
 
 import numpy as np
 
 from . import native
+from .dec.device_decode import decompress_device
 from .enc.encoder import (_encode_q11_streamed, _sanitize_params,
                           _store_uncompressed)
 from .format import constants as C
@@ -52,9 +53,19 @@ def compress(data, quality=11, lgwin=22, lgblock=0, device=None,
     return out
 
 
-def decompress(data) -> bytes:
-    """Decode a complete brotli stream with the native decoder."""
+def decompress(data, decoder="native", device=None) -> bytes:
+    """Decode a complete brotli stream. `decoder` takes the place of the
+    JAX package's BROTLI_TPU_DECODER: "native" is the native decoder;
+    "device" the native symbol parse and the LZ resolve on `device`
+    (None = "cuda", raising without it; "cpu" runs the plain resolve);
+    "python", the Python decoder, is not ported yet (ROADMAP M13)."""
+    if decoder == "python":
+        raise NotImplementedError("the Python decoder (ROADMAP M13)")
+    if decoder not in ("native", "device"):
+        raise ValueError(f"unknown decoder {decoder!r}")
     try:
+        if decoder == "device":
+            return decompress_device(bytes(data), device=device)
         return native.decode(bytes(data))
     except ValueError as e:
         raise error(str(e)) from e

@@ -1,8 +1,10 @@
 """RFC 7932 bitstream pieces the device pipelines need: the stream
-header and uncompressed-metablock writers (the whole-input stored
-fallback), the command planner the host cost tables replay the seed
-parse through, and the distance ring after a command sequence (the
-entry ring of a shard). Copied from brotli_tpu.enc.bitstream.
+header, metablock header, varlen and uncompressed-metablock writers (the
+whole-input stored fallback and the device serializer's host header),
+the command planner the host cost tables replay the seed parse through,
+the distance ring after a command sequence (the entry ring of a shard)
+and the emitted code lengths of a tree. Copied from
+brotli_tpu.enc.bitstream.
 """
 
 import numpy as np
@@ -40,6 +42,17 @@ def write_stream_header(bw: BitWriter, window_bits: int) -> None:
         bw.write(window_bits, 6)
     else:
         raise ValueError(f"invalid window bits {window_bits}")
+
+
+def write_varlen_uint8(bw: BitWriter, value: int) -> None:
+    if value == 0:
+        bw.write(0, 1)
+        return
+    bw.write(1, 1)
+    nbits = value.bit_length() - 1
+    bw.write(nbits, 3)
+    if nbits:
+        bw.write(value - (1 << nbits), nbits)
 
 
 def write_metablock_header_mlen(bw: BitWriter, mlen: int, is_last: bool,
@@ -253,3 +266,8 @@ def _combine_codes(icode, ccode, implicit):
     start = cell_starts[icode >> 3, ccode >> 3]
     implicit_start = np.where((ccode >> 3) == 0, 0, 64)
     return np.where(implicit, implicit_start + low, start + low)
+
+
+def _emission(lengths):  # single-symbol alphabets decode with 0 bits
+    return np.zeros_like(lengths) if np.count_nonzero(lengths) <= 1 \
+        else lengths

@@ -1,6 +1,7 @@
-"""Native host runtime (C), trimmed to what the q11 device pipeline
-calls: the seed parse, the static-dictionary probe and post-pass, the
-region serializer and the decoder. Copy of the ctypes bindings of
+"""Native host runtime (C), trimmed to what the port's device pipelines
+call: the seed parse, the static-dictionary probe and post-pass, the
+region serializer, package-merge code lengths, the decoder and the
+device decoder's symbol parse. Copy of the ctypes bindings of
 brotli_tpu.native over verbatim copies of its C sources.
 
 The library is compiled with the system compiler into `_build/` at
@@ -83,6 +84,20 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                 ctypes.POINTER(ctypes.c_size_t)]
             lib.btpu_dict_probe_all.restype = ctypes.c_int
+            lib.btpu_pm_lengths.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+            lib.btpu_pm_lengths.restype = ctypes.c_int
+            lib.btpu_parse_stream.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(ctypes.c_uint32)]
+            lib.btpu_parse_stream.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -121,6 +136,45 @@ def decode(data: bytes) -> bytes:
         return ctypes.string_at(out_ptr, out_len.value)
     finally:
         lib.btpu_free(out_ptr)
+
+
+def parse_stream(data: bytes, large_window: bool = False):
+    """Native deferred symbol parse (the device decoder's front end;
+    btpu_dec.c btpu_parse_stream): decodes the bit-serial symbol stream
+    and returns the copy graph for the device LZ resolve
+    (ops/lz_resolve.py).
+
+    Returns (lits, nlit_runs, copy_lens, dists, max_depth): the literal
+    byte stream, per-command uint32 arrays, and the copy-chain depth
+    bound. Raises DecodeError on a stream it does not take (invalid, or
+    with a compound dictionary)."""
+    lib = get_lib()
+    lits_p = ctypes.c_void_p()
+    nlit = ctypes.c_size_t()
+    cn_p = ctypes.c_void_p()
+    cc_p = ctypes.c_void_p()
+    cd_p = ctypes.c_void_p()
+    ncmd = ctypes.c_size_t()
+    max_depth = ctypes.c_uint32()
+    rc = lib.btpu_parse_stream(data, len(data), dictionary_data(),
+                               1 if large_window else 0,
+                               ctypes.byref(lits_p), ctypes.byref(nlit),
+                               ctypes.byref(cn_p), ctypes.byref(cc_p),
+                               ctypes.byref(cd_p), ctypes.byref(ncmd),
+                               ctypes.byref(max_depth))
+    if rc != 0:
+        raise DecodeError(rc)
+    try:
+        lits = ctypes.string_at(lits_p, nlit.value)
+        k = ncmd.value
+        cmds = [np.ctypeslib.as_array(
+            ctypes.cast(p, ctypes.POINTER(ctypes.c_uint32)), (k,)).copy()
+            if k else np.zeros(0, np.uint32) for p in (cn_p, cc_p, cd_p)]
+    finally:
+        for p in (lits_p, cn_p, cc_p, cd_p):
+            if p.value:
+                lib.btpu_free(p)
+    return (lits, *cmds, max_depth.value)
 
 
 def find_matches(data: bytes, quality: int, lgwin: int):

@@ -22,7 +22,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("suffix_min", "dp_scan", "dp_backtrack", "chain_select")
+SOURCES = ("suffix_min", "dp_scan", "dp_backtrack", "chain_select",
+           "bitpack", "lz_resolve")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -30,9 +31,12 @@ W = 64
 B = 4096
 CHAIN_L = 4096      # chain_select.cu's chunk: n is a multiple of it
 CHAIN_S = 256       # its sub-chunk: the longest walk of one thread
+PACK_TILE = 4096    # bitpack.cu's fields per CTA
+PACK_TABLE = 2 * (256 + 704 + 64)  # its code table: code and length of
+                                   # the literal, command, distance trees
 
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
-            "chain_select": 0}
+            "chain_select": 0, "bitpack": 0, "lz_resolve": 0}
 
 _libs = {}
 _lock = threading.Lock()
@@ -45,6 +49,11 @@ _SIGNATURES = {
     "btt_dp_backtrack": [_P, _P, _P, ctypes.c_int, _P],
     "btt_chain_select": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                          _P],
+    "btt_bitpack": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
+                    ctypes.c_longlong, _P, _P],
+    "btt_lz_resolve": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                       _P, _P, _P, _P],
 }
 
 
@@ -104,12 +113,13 @@ def _fn(source: str, symbol: str):
     return getattr(lib, symbol)
 
 
-def _check(t: torch.Tensor, name: str, ndim: int) -> None:
+def _check(t: torch.Tensor, name: str, ndim: int,
+           dtype=torch.int32) -> None:
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: expected a CUDA tensor, got "
                            f"{t.device}")
-    if t.dtype != torch.int32 or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous int32 tensor of "
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
                          f"{ndim} dims, got {t.dtype} {tuple(t.shape)}")
 
 
@@ -193,6 +203,62 @@ def chain_select_launch(skip, n, start):
             sel.data_ptr(), scratch.data_ptr(), n, int(start))
     LAUNCHES["chain_select"] += 1
     return sel, scratch[-1:]
+
+
+def bitpack(vals, markers, tables, bit0: int, cap_words: int):
+    """K6 on the card: int32 fields (vals, markers) (n,) and the six
+    int32 code tables (literal code and length (256,), command (704,),
+    distance (64,)) -> (words int32 (cap_words,) of u32 bit patterns,
+    total bits int64 0-dim, mod 2**32). One allocation holds the tiles'
+    start bits and the total; the words are zeroed on the C side."""
+    _check(vals, "vals", 1)
+    _check(markers, "markers", 1)
+    for t in tables:
+        _check(t, "code table", 1)
+    n = vals.shape[0]
+    tab = torch.cat(tables)
+    if markers.shape[0] != n or tab.shape[0] != PACK_TABLE or \
+            n >= 1 << 31 or cap_words <= 0 or not 0 <= bit0 < 32:
+        raise ValueError("bitpack: bad shapes or arguments")
+    dev = vals.device
+    words = torch.empty(cap_words, dtype=torch.int32, device=dev)
+    ntiles = -(-n // PACK_TILE)
+    scratch = torch.empty(ntiles + 1, dtype=torch.int64, device=dev)
+    _launch("bitpack", "btt_bitpack", dev, vals.data_ptr(),
+            markers.data_ptr(), tab.data_ptr(), n, bit0, words.data_ptr(),
+            cap_words, scratch.data_ptr())
+    LAUNCHES["bitpack"] += 1
+    return words, scratch[-1]
+
+
+def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int):
+    """K5 on the card: uint8 literals (L >= 1,) and int32 commands
+    (nlit, ncopy, dist) (ncmd,) -> (uint8 out (n_out,), int32 err (1,)),
+    err non-zero when a copy's source lay outside [0, j). The command
+    prefix sums are torch cumsums (int32, as in the JAX code); the
+    gathers are int32, so n_out < 2**31. Nothing waits for the card."""
+    _check(lits, "lits", 1, torch.uint8)
+    for t, name in ((nlit, "nlit"), (ncopy, "ncopy"), (dist, "dist")):
+        _check(t, name, 1)
+    ncmd = nlit.shape[0]
+    if lits.shape[0] < 1 or ncopy.shape[0] != ncmd or \
+            dist.shape[0] != ncmd or not 0 < ncmd < 1 << 31 or \
+            not 0 < n_out < 1 << 31 or n_steps < 0:
+        raise ValueError("lz_resolve: bad shapes or arguments")
+    dev = lits.device
+    ends = torch.cumsum(nlit + ncopy, 0, dtype=torch.int32)
+    lit_off = torch.cumsum(nlit, 0, dtype=torch.int32) - nlit
+    src = torch.empty((2, n_out), dtype=torch.int32, device=dev)
+    lv = torch.empty(n_out, dtype=torch.int16, device=dev)
+    out = torch.empty(n_out, dtype=torch.uint8, device=dev)
+    err = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("lz_resolve", "btt_lz_resolve", dev, lits.data_ptr(),
+            lits.shape[0], nlit.data_ptr(), ncopy.data_ptr(),
+            dist.data_ptr(), ends.data_ptr(), lit_off.data_ptr(), ncmd,
+            n_out, n_steps, src[0].data_ptr(), src[1].data_ptr(),
+            lv.data_ptr(), out.data_ptr(), err.data_ptr())
+    LAUNCHES["lz_resolve"] += 1
+    return out, err
 
 
 def reset_launches() -> None:

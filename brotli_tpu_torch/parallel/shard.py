@@ -3,12 +3,14 @@ brotli_tpu.parallel.shard).
 
 The input splits into shards; the card match-finds them one after
 another (the device matcher at q<=9, the optimal-parse DP at q>=10,
-each with the shard's absolute offset as its base), and host threads
-serialize each shard natively as whole byte-aligned metablock
-sequences that concatenate into ONE valid stream (non-last shards end
-with an empty metadata block). The decoder's distance ring crosses
-shard seams, so each shard's entry ring is derived from the matches
-before it.
+each with the shard's absolute offset as its base), and each shard is
+serialized as whole byte-aligned metablock sequences that concatenate
+into ONE valid stream (non-last shards end with an empty metadata
+block): natively on host threads, or with serializer="device" on the
+card (parallel/device_serialize.py), one shard after another, a shard
+the device path does not take going to the native serializer. The
+decoder's distance ring crosses shard seams, so each shard's entry
+ring is derived from the matches before it.
 """
 
 import concurrent.futures as futures
@@ -23,6 +25,7 @@ from ..ops.optimal import find_matches_optimal
 from ..utils import trace
 from ..utils.device import resolve
 from . import serialize_shard_native
+from .device_serialize import serialize_shard_device
 
 
 def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
@@ -34,17 +37,21 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     single RFC 7932 stream. `n_shards=None` means one shard per CUDA
     device on the card, one on the CPU.
 
+    `serializer`: "native" runs the native serializer per shard on host
+    threads; "device" plans the symbol stream and packs the payload bits
+    on the card (trivial single-tree metablocks, slightly larger).
+
     Not ported yet, and raising NotImplementedError: more CUDA devices
     than one with n_shards > 1 (the mesh, ROADMAP M7), gather=
-    "collective" (M7/M10), serializer="device" (M8), and use_device=
-    False or inputs under n_shards * 64 KiB, where the JAX package
-    takes its host encoder (M13)."""
+    "collective" (M7/M10), and use_device=False or inputs under
+    n_shards * 64 KiB, where the JAX package takes its host encoder
+    (M13)."""
     dev = resolve(device)
     if gather != "host":
         raise NotImplementedError(
             "gather='collective' (ROADMAP M7/M10)")
-    if serializer != "native":
-        raise NotImplementedError("serializer='device' (ROADMAP M8)")
+    if serializer not in ("native", "device"):
+        raise ValueError(f"unknown serializer {serializer!r}")
     if not use_device:
         raise NotImplementedError(
             "use_device=False takes the host encoder (ROADMAP M13)")
@@ -85,16 +92,25 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
         entry_rings.append(bitstream.ring_after(sdists, sflags,
                                                 entry_rings[-1]))
 
-    # Stage 2: native serialization per shard, each byte-aligned; the
-    # native call releases the GIL, so shards serialize in parallel
+    # Stage 2: serialization per shard, each byte-aligned. The native
+    # call releases the GIL, so shards serialize natively in parallel;
+    # on the card they go one after another
     def serialize(si):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
+        is_last = si == n_shards - 1
         with trace.stage("serialize"):
+            if serializer == "device":
+                out = serialize_shard_device(
+                    arr, lo, hi, shard_matches[si], entry_rings[si], lgwin,
+                    si == 0, is_last, device=dev)
+                if out is not None:
+                    return out
             return serialize_shard_native(
                 raw, lo, hi, shard_matches[si], quality, lgwin,
-                entry_rings[si], si == 0, si == n_shards - 1)
+                entry_rings[si], si == 0, is_last)
 
-    with futures.ThreadPoolExecutor(max_workers=min(n_shards, 8)) as ex:
+    workers = 1 if serializer == "device" else min(n_shards, 8)
+    with futures.ThreadPoolExecutor(max_workers=workers) as ex:
         parts = list(ex.map(serialize, range(n_shards)))
     return b"".join(parts)
 

@@ -25,8 +25,24 @@ Phases (any failure ends the run with a non-zero exit and no result):
   7. the same q5 bytes on the card and on the CPU, for a 1 MiB prefix;
   8. q11 with two shards on the card (8 MiB): the second shard's seed
      parse runs the device matcher, so all four kernels launch;
-  9. print the kernels line (launches on each kernel's path, errors,
+  9. the device serializer: compress_sharded(corpus, quality=5,
+     serializer="device") three times as in phase 4 (K6 once per 4 MiB
+     metablock, no shard left to the native serializer), K6 against its
+     plain version on the real fields of the first metablock (and timed
+     there), the plan's device launches, the same bytes on the card and
+     on the CPU for a 1 MiB prefix, and q11 with two shards (8 MiB);
+ 10. the device decoder: decompress(..., decoder="device") of the q11 and
+     q5 streams of phases 4 and 6 against the native decoder (K5 once a
+     stream), the parse and resolve split, and K5 against its plain
+     version on the real parse of the q11 stream (and timed there);
+ 11. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
+
+Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
+literals; one literal then a 16 Mi - 1 byte copy at distance 1, in full
+and cut to 10 rounds; random commands) and K6 on seeded fields at the
+4 MiB metablock's 9,437,224 fields (every marker kind; and every field 24
+raw bits, which overflows the words).
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -122,6 +138,69 @@ def k4_case(fill, nb, B, seed):
     return pay.view(np.int32)
 
 
+def k5_cases(n, seed):
+    """Seeded K5 command lists at n outputs: (label, lits, (nlit, ncopy,
+    dist), n_steps), n_steps the full ceil(log2 n) but for "rle cut"."""
+    rng = np.random.default_rng(seed)
+    full = (n - 1).bit_length()
+    lits = rng.integers(0, 256, n, dtype=np.uint8)
+
+    def cmds(*cols):
+        return tuple(np.array(c, np.int32) for c in cols)
+
+    cases = [("literals", lits, cmds([n], [0], [0]), full),
+             ("rle", lits[:1], cmds([1], [n - 1], [1]), full),
+             ("rle cut", lits[:1], cmds([1], [n - 1], [1]), 10)]
+    # random commands: inserts of 0..11, copies of 0 or 2..39 bytes,
+    # half the distances 1..4 (overlapping chains), half anywhere back
+    k = n // 16
+    nl = rng.integers(0, 12, k)
+    nl[0] = max(nl[0], 1)
+    nc = rng.integers(0, 40, k)
+    nc[nc == 1] = 2
+    ends = np.cumsum(nl + nc)
+    k = int(np.searchsorted(ends, n)) + 1
+    nl, nc = nl[:k], nc[:k]
+    rest = n - (int(ends[k - 2]) if k > 1 else 0)
+    nl[-1] = min(nl[-1], rest)
+    nc[-1] = rest - nl[-1]
+    first_copy = np.cumsum(nl + nc) - nc  # start + nlit
+    far = rng.integers(1, first_copy + 1)
+    near = np.minimum(rng.integers(1, 5, k), first_copy)
+    dist = np.where(rng.random(k) < 0.5, near, far)
+    cases.append(("random", lits[:int(nl.sum())],
+                  cmds(nl, nc, dist), full))
+    return cases
+
+
+def k6_case(nfields, seed, overflow=False):
+    """Seeded K6 fields and code tables: (vals, markers, tables, bit0).
+    Six in ten fields raw with 0 bits (the plan's empty slots), one raw
+    with 1..24 bits, 1.5 literals, one command and half a distance
+    symbol; tables of random codes and lengths 0..15. With `overflow`
+    every field is 24 raw bits, past the words' end."""
+    rng = np.random.default_rng(seed)
+    kind = rng.choice(5, nfields, p=[0.6, 0.1, 0.15, 0.1, 0.05])
+    vals = rng.integers(-2 ** 31, 2 ** 31, nfields).astype(np.int32)
+    mk = np.zeros(nfields, np.int32)
+    for kd, marker, lo, hi in ((1, None, 0, 0), (2, -2, 0, 256),
+                               (3, -1, 0, 704), (4, -1, 4096, 4160)):
+        sel = kind == kd
+        if marker is None:
+            mk[sel] = rng.integers(1, 25, int(sel.sum()))
+        else:
+            mk[sel] = marker
+            vals[sel] = rng.integers(lo, hi, int(sel.sum()))
+    if overflow:
+        mk[:] = 24
+    tables = []
+    for size in (256, 704, 64):
+        tables += [rng.integers(0, 1 << 15, size).astype(np.int32),
+                   rng.integers(0, 16, size).astype(np.int32)]
+    # table order: lit code, lit len, cmd code, cmd len, dist code, len
+    return vals, mk, tables, int(rng.integers(0, 8))
+
+
 def bound(nbytes, nops):
     tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -141,12 +220,13 @@ def timed(fn):
     return res, time.perf_counter() - t
 
 
-def three_runs(fn, trace, kernels, label, corpus, decompress, card):
-    """A first run, a timed run with the trace off (kernel launches and
-    peak device memory counted, the stream decoded back exactly) and a
-    traced run; all three must give the same bytes. Returns the timed
-    run's launches."""
-    first, cold = timed(fn)
+def three_runs(fn, trace, kernels, label, corpus, decompress, card,
+               first_fn=None):
+    """A first run (through `first_fn` when given), a timed run with the
+    trace off (kernel launches and peak device memory counted, the
+    stream decoded back exactly) and a traced run; all three must give
+    the same bytes. Returns the timed run's launches and stream."""
+    first, cold = timed(first_fn or fn)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     out, wall = timed(fn)
@@ -168,7 +248,223 @@ def three_runs(fn, trace, kernels, label, corpus, decompress, card):
     print(trace.format_report(), flush=True)
     if not first == out == again:
         sys.exit(f"chip_smoke: {label} runs on the same input differ")
-    return launches
+    return launches, out
+
+
+def seeded_k5_k6(dev, n5=1 << 24, b6=1 << 22):
+    """Phase 3's K5 and K6 checks on seeded inputs: K5 at n5 outputs,
+    K6 at the field count of a b6-byte metablock. Returns the errors
+    (and K6's total bits) by case."""
+    from brotli_tpu_torch.ops import bitpack as BP, kernels
+    from brotli_tpu_torch.ops import lz_resolve as LZ
+
+    # K5 on seeded command lists at 16 Mi outputs, K6 on seeded fields at
+    # the 4 MiB metablock's count; both are timed on the main path's real
+    # inputs in phases 9 and 10. Every comparison is bitwise
+    seeded = {"K5": {}, "K6": {}}
+    for label, lits, cmds, steps in k5_cases(n5, 7):
+        la = torch.from_numpy(lits).to(dev)
+        ct = [torch.from_numpy(c).to(dev) for c in cmds]
+        got, flag = kernels.lz_resolve(la, *ct, n5, steps)
+        want = LZ.resolve_plain(la, *ct, n5, steps)
+        seeded["K5"][label] = max_abs_err(got, want) + int(flag.item())
+    # a copy from before the output sets K5's error flag
+    _, flag = kernels.lz_resolve(la[:1], *(torch.tensor(
+        [v], dtype=torch.int32, device=dev) for v in (1, n5 - 1, 2)), n5,
+        24)
+    if int(flag.item()) == 0:
+        sys.exit("chip_smoke: K5 took a copy from before the output")
+    del la, ct, got, want
+    nf6, cw6 = 5 * (b6 // 4 + 8) + b6, b6 // 2 + 64
+    for label, over in (("seeded", False), ("overflow", True)):
+        v6, m6, t6, bit0 = k6_case(nf6, 11, over)
+        v6, m6 = torch.from_numpy(v6).to(dev), torch.from_numpy(m6).to(dev)
+        t6 = [torch.from_numpy(t).to(dev) for t in t6]
+        words, total = kernels.bitpack(v6, m6, t6, bit0, cw6)
+        pw, pt = BP.pack_plain(v6, m6, *t6, bit0, cw6)
+        seeded["K6"][label] = max(max_abs_err(words, pw),
+                                  abs(int(total) - int(pt)))
+        seeded["K6"][label + " bits"] = int(pt)
+    print(f"[3] K5 lz_resolve at n_out={n5}, K6 bitpack at {nf6} fields "
+          f"(cap {32 * cw6} bits): max_abs_err, total bits {seeded}",
+          flush=True)
+    if any(v for k in ("K5", "K6") for lb, v in seeded[k].items()
+           if not lb.endswith("bits")):
+        sys.exit(f"chip_smoke: K5 or K6 disagree with their plain "
+                 f"versions: {seeded}")
+    del v6, m6, t6, words, pw
+    torch.cuda.empty_cache()
+    return seeded
+
+
+def device_serializer(corpus, part, q5_out, out2, rows, seeded, card):
+    """Phase 9: the q5 path through the device serializer (K6), K6 on
+    the first metablock's real fields (its kernels-line row), the
+    plan's launches, cuda against cpu, and q11 with two shards.
+    Returns the main path's launches."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch.ops import bitpack as BP, kernels
+    from brotli_tpu_torch.parallel import device_serialize as DS
+    from brotli_tpu_torch.parallel.shard import compress_sharded
+    from brotli_tpu_torch.utils import trace
+
+    print("[9] q5, compress_sharded(serializer='device')", flush=True)
+    first_args = {}
+
+    def capturing(name, fn):
+        def wrapped(*args):
+            first_args.setdefault(name, args)
+            return fn(*args)
+        return wrapped
+
+    def first_run():
+        """The first run, recording the plan's and K6's inputs of the
+        first metablock."""
+        plan, pack = BP.plan, BP.pack
+        BP.plan, BP.pack = capturing("plan", plan), capturing("pack", pack)
+        try:
+            return compress_sharded(corpus, quality=5, serializer="device")
+        finally:
+            BP.plan, BP.pack = plan, pack
+
+    DS.HOST_SHARDS = 0
+    launches_ds, ds_out = three_runs(
+        lambda: compress_sharded(corpus, quality=5, serializer="device"),
+        trace, kernels, "q5 device serializer", corpus, bt.decompress, card,
+        first_fn=first_run)
+    print(f"    native serializer {len(q5_out)} B, device serializer "
+          f"{len(ds_out)} B ({len(ds_out) / len(q5_out) - 1:+.4%}); "
+          f"shards left to the native serializer {DS.HOST_SHARDS}",
+          flush=True)
+    if DS.HOST_SHARDS or launches_ds["bitpack"] != 4:
+        sys.exit(f"chip_smoke: the device serializer left "
+                 f"{DS.HOST_SHARDS} shards to the host and launched K6 "
+                 f"{launches_ds['bitpack']} times, not 4")
+    pk = first_args["pack"]
+    words, total = BP.pack(*pk)
+    pw, pt = BP.pack_plain(*pk)
+    err6 = max(max_abs_err(words, pw), abs(int(total) - int(pt)))
+    vals6, mk6, tabs6, cw6 = pk[0], pk[1], pk[2:8], pk[9]
+    rows["K6"] = dict(
+        name="bitpack", route="cuda",
+        source="brotli_tpu_torch/csrc/bitpack.cu",
+        replaces="brotli_tpu/ops/bitpack.py:277",
+        max_abs_err=max([err6] + [v for lb, v in seeded["K6"].items()
+                                  if not lb.endswith("bits")]),
+        ms=cuda_ms(lambda: BP.pack(*pk), 10),
+        device_ms=cuda_ms(lambda: BP.pack(*pk), 10, queued=True),
+        plain_ms=cuda_ms(lambda: BP.pack_plain(*pk), 3),
+        # the fields read once, the tables, the words written once
+        nbytes=(vals6.numel() + mk6.numel() + sum(t.numel() for t in tabs6)
+                + cw6) * 4,
+        nops=vals6.numel() * 16)
+    print(f"    K6 on the first metablock's {vals6.numel()} fields: "
+          f"max_abs_err {err6}, total bits {int(pt)}", flush=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        BP.plan(*first_args["plan"])
+        torch.cuda.synchronize()
+    plan_launches = sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"    the plan of one metablock: {plan_launches} device kernels "
+          f"and copies", flush=True)
+    del first_args, pk, words, pw, vals6, mk6, tabs6
+    torch.cuda.empty_cache()
+
+    prefix = corpus[:1 << 20]
+    on_card = compress_sharded(prefix, quality=5, serializer="device")
+    t0 = time.perf_counter()
+    on_cpu = compress_sharded(prefix, quality=5, serializer="device",
+                              device="cpu")
+    print(f"    1 MiB prefix: cuda {len(on_card)} B, cpu {len(on_cpu)} B "
+          f"(cpu path {time.perf_counter() - t0:.1f} s)", flush=True)
+    if on_card != on_cpu or bt.decompress(on_card) != prefix:
+        sys.exit("chip_smoke: device-serializer cuda and cpu streams differ")
+    out3, wall3 = timed(lambda: compress_sharded(
+        part, quality=11, n_shards=2, serializer="device"))
+    print(f"    q11, two shards, device serializer: {len(part)} B -> "
+          f"{len(out3)} B (native serializer {len(out2)} B) in {wall3:.3f} "
+          f"s [{card}]; shards left to the native serializer "
+          f"{DS.HOST_SHARDS}", flush=True)
+    if bt.decompress(out3) != part or DS.HOST_SHARDS:
+        sys.exit("chip_smoke: the two-shard device-serialized q11 stream "
+                 "does not decode, or a shard went to the host")
+    return launches_ds
+
+
+def device_decoder(corpus, streams, rows, seeded, dev, card):
+    """Phase 10: the device decoder on each (label, stream) of the
+    corpus against the native decoder, its parse and resolve split,
+    and K5 on the real parse of the first stream (its kernels-line
+    row). Returns the main path's launches."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch import native
+    from brotli_tpu_torch.ops import kernels, lz_resolve as LZ
+    from brotli_tpu_torch.utils import trace
+
+    print("[10] decompress(decoder='device')", flush=True)
+    kernels.reset_launches()
+    for label, stream in streams:
+        if bt.decompress(stream, decoder="device") != corpus:
+            sys.exit(f"chip_smoke: the device decoder got the {label} "
+                     f"stream wrong")
+    launches_dec = dict(kernels.LAUNCHES)
+    if launches_dec["lz_resolve"] != len(streams):
+        sys.exit(f"chip_smoke: the device decoder launched K5 "
+                 f"{launches_dec['lz_resolve']} times, not {len(streams)}")
+    for label, stream in streams:
+        _, wall_nat = timed(lambda: bt.decompress(stream))
+        _, wall_dev = timed(lambda: bt.decompress(stream, decoder="device"))
+        trace.enable()
+        trace.reset()
+        timed(lambda: bt.decompress(stream, decoder="device"))
+        trace.enable(False)
+        split = {k: round(v[1] * 1e3, 3) for k, v in trace.report().items()}
+        lits, cn, cc, cd, depth = native.parse_stream(stream)
+        n_out = int(cn.sum(dtype=np.int64) + cc.sum(dtype=np.int64))
+        steps = LZ.n_steps_for(n_out, depth)
+        print(f"    {label}: {len(stream)} B -> {n_out} B; native decoder "
+              f"{wall_nat:.3f} s, device decoder {wall_dev:.3f} s "
+              f"[{card}]; traced ms {split}; {len(cn)} commands, "
+              f"{len(lits)} literals, chain depth {depth}, {steps} rounds",
+              flush=True)
+        if label == streams[0][0]:
+            real5 = (torch.from_numpy(np.frombuffer(lits, np.uint8).copy())
+                     .to(dev), *(torch.from_numpy(c.astype(np.int32)).to(dev)
+                                 for c in (cn, cc, cd)), n_out, steps)
+    got, flag = kernels.lz_resolve(*real5)
+    err5 = max_abs_err(got, LZ.resolve_plain(*real5)) + int(flag.item())
+    print(f"    K5 on the {streams[0][0]} stream's parse: max_abs_err {err5}",
+          flush=True)
+    la5, nl5, n5, steps5 = real5[0], real5[1], real5[4], real5[5]
+    rows["K5"] = dict(
+        name="lz_resolve", route="cuda",
+        source="brotli_tpu_torch/csrc/lz_resolve.cu",
+        replaces="brotli_tpu/ops/lz_resolve.py:29",
+        max_abs_err=max([err5] + list(seeded["K5"].values())),
+        ms=cuda_ms(lambda: kernels.lz_resolve(*real5), 10),
+        device_ms=cuda_ms(lambda: kernels.lz_resolve(*real5), 10,
+                          queued=True),
+        plain_ms=cuda_ms(lambda: LZ.resolve_plain(*real5), 3),
+        # the literals and the three command arrays read once, the
+        # output written once
+        nbytes=la5.numel() + 3 * nl5.numel() * 4 + n5,
+        nops=n5)
+    for k in ("K5", "K6"):
+        r = rows[k]
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
+        print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms one call "
+              f"(the card alone {r['device_ms']:.3f} ms), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) [{card}]")
+    print(f"    K5 lz_resolve: its doubling moves ~12 B a position a round "
+          f"and the setup ~8: {(12 * steps5 + 8) * n5 / PEAK_BYTES * 1e3:.3f}"
+          f" ms for {steps5} rounds at {n5} positions")
+    bad = [k for k in ("K5", "K6") if rows[k]["max_abs_err"] != 0]
+    if bad:
+        sys.exit(f"chip_smoke: kernels disagree with their plain "
+                 f"versions: {bad}")
+    return launches_dec
 
 
 def main():
@@ -415,10 +711,13 @@ def main():
     del skip
     torch.cuda.empty_cache()
 
+    seeded = seeded_k5_k6(dev)
+
     # -- 4. the q11 path ------------------------------------------------
     print("[4] q11, api.compress", flush=True)
-    launches = three_runs(lambda: bt.compress(corpus, quality=11), trace,
-                          kernels, "q11", corpus, bt.decompress, card)
+    launches, q11_out = three_runs(
+        lambda: bt.compress(corpus, quality=11), trace, kernels, "q11",
+        corpus, bt.decompress, card)
     missing = [k for k in ("suffix_min", "dp_scan", "dp_backtrack")
                if launches[k] == 0]
     if missing:
@@ -436,7 +735,7 @@ def main():
 
     # -- 6. the q5 path --------------------------------------------------
     print("[6] q5, parallel.shard.compress_sharded", flush=True)
-    launches_q5 = three_runs(
+    launches_q5, q5_out = three_runs(
         lambda: compress_sharded(corpus, quality=5), trace, kernels, "q5",
         corpus, bt.decompress, card)
     if launches_q5["chain_select"] != 4:
@@ -464,14 +763,26 @@ def main():
           f"launches {launches_sh}", flush=True)
     if bt.decompress(out2) != part:
         sys.exit("chip_smoke: the two-shard q11 stream does not decode")
-    missing = [k for k, c in launches_sh.items() if c == 0]
+    missing = [k for k in ("suffix_min", "dp_scan", "dp_backtrack",
+                           "chain_select") if launches_sh[k] == 0]
     if missing:
         sys.exit(f"chip_smoke: the two-shard q11 path launched no {missing}")
 
-    # -- 9. report -------------------------------------------------------
-    path_launches = dict(launches, chain_select=launches_q5["chain_select"])
+    # -- 9. the device serializer ----------------------------------------
+    launches_ds = device_serializer(corpus, part, q5_out, out2, rows,
+                                    seeded, card)
+
+    # -- 10. the device decoder -----------------------------------------
+    launches_dec = device_decoder(
+        corpus, (("q11", q11_out), ("q5", q5_out)), rows, seeded, dev,
+        card)
+
+    # -- 11. report ------------------------------------------------------
+    path_launches = dict(launches, chain_select=launches_q5["chain_select"],
+                         bitpack=launches_ds["bitpack"],
+                         lz_resolve=launches_dec["lz_resolve"])
     kern = []
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],

@@ -366,7 +366,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.chain_select_launch(torch.ones(4096, dtype=torch.int32),
                                     4096, 0)
     assert kernels.LAUNCHES == {"suffix_min": 0, "dp_scan": 0,
-                                "dp_backtrack": 0, "chain_select": 0}
+                                "dp_backtrack": 0, "chain_select": 0,
+                                "bitpack": 0, "lz_resolve": 0}
 
 
 def test_profile_busy_time_is_the_union():
@@ -376,9 +377,9 @@ def test_profile_busy_time_is_the_union():
 
 
 def test_import_isolation():
-    """(h) importing the port, one CPU compress and one CPU
-    compress_sharded at q5 leave no JAX and no module of the JAX
-    package behind."""
+    """(h) importing the port, one CPU compress, one CPU
+    compress_sharded at q5 with each serializer and one CPU device
+    decode leave no JAX and no module of the JAX package behind."""
     code = "\n".join([
         "import sys",
         "import brotli_tpu_torch as bt",
@@ -392,6 +393,9 @@ def test_import_isolation():
         "assert bt.decompress(out) == data",
         "out = compress_sharded(data, quality=5, n_shards=2, device='cpu')",
         "assert bt.decompress(out) == data",
+        "out = compress_sharded(data, quality=5, n_shards=2, device='cpu',",
+        "                       serializer='device')",
+        "assert bt.decompress(out, decoder='device', device='cpu') == data",
         "print(sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'brotli_tpu')))",
     ])

@@ -6,7 +6,8 @@ package's, byte for byte, on the CPU.
       entry rings across shard seams and native serialization;
   (f) `compress_sharded` at q11 with two shards: the optimal-parse DP
       per shard, whose second shard seeds through the device matcher;
-  (g) the device rule and what is not ported yet.
+  (g) the device rule and what is not ported yet (serializer="device"
+      is held to the JAX package in tests/test_torch_bitpack.py).
 
 The JAX package takes its single-device device branch on the CPU with
 nothing in it edited: `backend_or_cpu` reports a GPU, the Pallas chain
@@ -139,7 +140,7 @@ def test_compress_sharded_needs_cuda(monkeypatch, data):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(gather="collective"), "M7/M10"), (dict(serializer="device"), "M8"),
+    (dict(gather="collective"), "M7/M10"),
     (dict(use_device=False), "M13"), (dict(size=100_000, n_shards=2), "M13"),
     (dict(size=0), "M13")])
 def test_unported_options_raise(data, kwargs, item):
