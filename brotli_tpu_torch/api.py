@@ -20,15 +20,16 @@ class error(Exception):
     """Raised on invalid input or parameters (parity: brotli.error)."""
 
 
-def compress(data, quality=11, lgwin=22, lgblock=0, device=None,
-             mode=0, dictionary=None, large_window=False) -> bytes:
+def compress(string, mode=0, quality=11, lgwin=22, lgblock=0,
+             dictionary=None, large_window=False, base64_mode=False, *,
+             device=None) -> bytes:
     """One-shot q10/q11 compression on `device` (None = "cuda"; "cpu"
-    runs the plain PyTorch versions of the kernels). Qualities up to 9,
-    inputs under 256 KiB, dictionaries, large windows and modes other
+    runs the plain PyTorch versions of the kernels). The positional
+    order is brotli_tpu.compress's. Qualities up to 9, inputs under
+    256 KiB, dictionaries, large windows, base64 mode and modes other
     than generic are not ported yet and raise NotImplementedError."""
-    dev = resolve(device)
     quality, lgwin, lgblock = _sanitize_params(quality, lgwin, lgblock)
-    raw = bytes(data)
+    raw = bytes(string)
     n = len(raw)
     if quality < 10:
         raise NotImplementedError(
@@ -39,9 +40,11 @@ def compress(data, quality=11, lgwin=22, lgblock=0, device=None,
     if n < MIN_DEVICE_INPUT:
         raise NotImplementedError(
             "inputs under 256 KiB take the host tiers (ROADMAP M13)")
-    if dictionary is not None or large_window or mode != 0:
+    if dictionary is not None or large_window or mode != 0 or base64_mode:
         raise NotImplementedError(
-            "dictionaries, large windows and modes (ROADMAP M13)")
+            "dictionaries, large windows, base64 mode and modes "
+            "(ROADMAP M13)")
+    dev = resolve(device)
     arr = np.frombuffer(raw, dtype=np.uint8)
     try:
         out = _encode_q11_streamed(arr, n, C.max_backward_distance(lgwin),
@@ -53,19 +56,30 @@ def compress(data, quality=11, lgwin=22, lgblock=0, device=None,
     return out
 
 
-def decompress(data, decoder="native", device=None) -> bytes:
-    """Decode a complete brotli stream. `decoder` takes the place of the
-    JAX package's BROTLI_TPU_DECODER: "native" is the native decoder;
-    "device" the native symbol parse and the LZ resolve on `device`
-    (None = "cuda", raising without it; "cpu" runs the plain resolve);
-    "python", the Python decoder, is not ported yet (ROADMAP M13)."""
+def decompress(string, dictionary=None, large_window=False, *,
+               decoder="native", device=None) -> bytes:
+    """Decode a complete brotli stream; the positional order is
+    brotli_tpu.decompress's. `decoder` takes the place of the JAX
+    package's BROTLI_TPU_DECODER: "native" is the native decoder;
+    "device" the native symbol parse (which takes `large_window`) and
+    the LZ resolve on `device` (None = "cuda", raising without it;
+    "cpu" runs the plain resolve); "python", the Python decoder, is not
+    ported yet. Dictionaries, and `large_window` through the native
+    decoder, raise NotImplementedError (ROADMAP M13)."""
     if decoder == "python":
         raise NotImplementedError("the Python decoder (ROADMAP M13)")
     if decoder not in ("native", "device"):
         raise ValueError(f"unknown decoder {decoder!r}")
+    if dictionary:
+        raise NotImplementedError("decoding with a dictionary (ROADMAP M13)")
+    if large_window and decoder == "native":
+        raise NotImplementedError(
+            "large windows through the native decoder (ROADMAP M13; "
+            "decoder=\"device\" takes them)")
     try:
         if decoder == "device":
-            return decompress_device(bytes(data), device=device)
-        return native.decode(bytes(data))
+            return decompress_device(bytes(string), large_window,
+                                     device=device)
+        return native.decode(bytes(string))
     except ValueError as e:
         raise error(str(e)) from e

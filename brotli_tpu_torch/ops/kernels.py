@@ -53,7 +53,7 @@ _SIGNATURES = {
                     ctypes.c_longlong, _P, _P],
     "btt_lz_resolve": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
-                       _P, _P, _P, _P],
+                       _P, _P],
 }
 
 
@@ -205,12 +205,15 @@ def chain_select_launch(skip, n, start):
     return sel, scratch[-1:]
 
 
-def bitpack(vals, markers, tables, bit0: int, cap_words: int):
+def bitpack(vals, markers, tables, bit0: int, cap_words: int,
+            stats: bool = False):
     """K6 on the card: int32 fields (vals, markers) (n,) and the six
     int32 code tables (literal code and length (256,), command (704,),
     distance (64,)) -> (words int32 (cap_words,) of u32 bit patterns,
-    total bits int64 0-dim, mod 2**32). One allocation holds the tiles'
-    start bits and the total; the words are zeroed on the C side."""
+    total bits int64 0-dim, mod 2**32); with `stats`, also the count of
+    tiles that took the slow path (int64 0-dim). One launch; one
+    allocation holds the tiles' descriptors, the ticket, that count and
+    the total; the words are zeroed on the C side."""
     _check(vals, "vals", 1)
     _check(markers, "markers", 1)
     for t in tables:
@@ -222,21 +225,27 @@ def bitpack(vals, markers, tables, bit0: int, cap_words: int):
         raise ValueError("bitpack: bad shapes or arguments")
     dev = vals.device
     words = torch.empty(cap_words, dtype=torch.int32, device=dev)
-    ntiles = -(-n // PACK_TILE)
-    scratch = torch.empty(ntiles + 1, dtype=torch.int64, device=dev)
+    ntiles = max(1, -(-n // PACK_TILE))
+    scratch = torch.empty(ntiles + 3, dtype=torch.int64, device=dev)
     _launch("bitpack", "btt_bitpack", dev, vals.data_ptr(),
             markers.data_ptr(), tab.data_ptr(), n, bit0, words.data_ptr(),
             cap_words, scratch.data_ptr())
     LAUNCHES["bitpack"] += 1
+    if stats:
+        return words, scratch[-1], scratch[-2]
     return words, scratch[-1]
 
 
-def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int):
+def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int,
+               stats: bool = False):
     """K5 on the card: uint8 literals (L >= 1,) and int32 commands
-    (nlit, ncopy, dist) (ncmd,) -> (uint8 out (n_out,), int32 err (1,)),
-    err non-zero when a copy's source lay outside [0, j). The command
-    prefix sums are torch cumsums (int32, as in the JAX code); the
-    gathers are int32, so n_out < 2**31. Nothing waits for the card."""
+    (nlit, ncopy, dist) (ncmd,) -> (uint8 out (n_out,), err), err an
+    int64 (1,) non-zero when a copy's source lay outside [0, j). With
+    `stats`, also an int64 (3,) tensor: the positions left unresolved
+    after the tile collapse, the hops of the global jumps and the most
+    hops of one position. The command prefix sums are torch cumsums
+    (int32, as in the JAX code); the states are 8 bytes a position, so
+    n_out < 2**31. Nothing waits for the card."""
     _check(lits, "lits", 1, torch.uint8)
     for t, name in ((nlit, "nlit"), (ncopy, "ncopy"), (dist, "dist")):
         _check(t, name, 1)
@@ -248,17 +257,16 @@ def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int):
     dev = lits.device
     ends = torch.cumsum(nlit + ncopy, 0, dtype=torch.int32)
     lit_off = torch.cumsum(nlit, 0, dtype=torch.int32) - nlit
-    src = torch.empty((2, n_out), dtype=torch.int32, device=dev)
-    lv = torch.empty(n_out, dtype=torch.int16, device=dev)
+    states = torch.empty(n_out, dtype=torch.int64, device=dev)
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
-    err = torch.empty(1, dtype=torch.int32, device=dev)
+    cnt = torch.empty(4, dtype=torch.int64, device=dev)
     _launch("lz_resolve", "btt_lz_resolve", dev, lits.data_ptr(),
             lits.shape[0], nlit.data_ptr(), ncopy.data_ptr(),
             dist.data_ptr(), ends.data_ptr(), lit_off.data_ptr(), ncmd,
-            n_out, n_steps, src[0].data_ptr(), src[1].data_ptr(),
-            lv.data_ptr(), out.data_ptr(), err.data_ptr())
+            n_out, n_steps, states.data_ptr(), out.data_ptr(),
+            cnt.data_ptr())
     LAUNCHES["lz_resolve"] += 1
-    return out, err
+    return (out, cnt[:1], cnt[1:]) if stats else (out, cnt[:1])
 
 
 def reset_launches() -> None:

@@ -8,7 +8,11 @@ either IS a literal (a fixed point) or points `dist` bytes back, and
 pointer doubling (src = src[src], out of place) halves every chain's
 depth a round, so ceil(log2(depth)) rounds resolve them all.
 `resolve_plain` is the JAX package's `_resolve` in torch ops; `resolve`
-runs it for the CPU and K5 (csrc/lz_resolve.cu) on the card.
+runs it for the CPU and K5 (csrc/lz_resolve.cu) on the card. After
+n_steps out-of-place rounds a position holds its chain's literal where
+its copy depth is at most 2**n_steps, else 0; K5 computes every
+position's literal and exact depth instead of doubling, and applies
+that rule, so its bytes equal the doubling's at every round count.
 """
 
 import numpy as np

@@ -40,9 +40,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
 literals; one literal then a 16 Mi - 1 byte copy at distance 1, in full
-and cut to 10 rounds; random commands) and K6 on seeded fields at the
-4 MiB metablock's 9,437,224 fields (every marker kind; and every field 24
-raw bits, which overflows the words).
+and cut to 0, 1, 12 and 23 rounds; random commands; copies 20,000 to
+30,000 back, whose chains cross hundreds of K5's tiles), printing the
+positions its tile collapse leaves and the hops of its global jumps,
+and K6 on seeded fields at the 4 MiB metablock's 9,437,224 fields
+(every marker kind; every field 24 raw bits, which overflows the words;
+the words cut to end 60% into the payload, mid-tile; one field of 40
+bits), printing the tiles that took its slow path. Phases 9 and 10
+print the same on the real metablock and on both streams' parses, and
+the card's time for each launch of one K6 and one K5 call.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -102,6 +108,28 @@ def cuda_ms(fn, reps, queued=False):
     return statistics.median(times)
 
 
+def launch_split(fn, reps=5):
+    """Median device microseconds of each kernel and copy that one call
+    of fn launches (torch.profiler over `reps` calls, after a warm-up),
+    as "name us" strings in launch order."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            us.setdefault(name.split("(")[0][:48], []).append(
+                e.time_range.elapsed_us())
+    return [f"{k} {statistics.median(v):.1f} us"
+            + (f" x{len(v) // reps}" if len(v) > reps else "")
+            for k, v in us.items()]
+
+
 def k1_case(nslots, n, seed):
     """Seeded K1 slots at the main path's width, as in
     tests/test_torch_kernels.py: costs from a handful of values (ties
@@ -140,7 +168,9 @@ def k4_case(fill, nb, B, seed):
 
 def k5_cases(n, seed):
     """Seeded K5 command lists at n outputs: (label, lits, (nlit, ncopy,
-    dist), n_steps), n_steps the full ceil(log2 n) but for "rle cut"."""
+    dist), n_steps), n_steps the full ceil(log2 n) but for the "rle"
+    cuts (0, 1, full / 2 and full - 1 rounds: K5 resolves with exact
+    depths, so every cut must give the doubling's bytes)."""
     rng = np.random.default_rng(seed)
     full = (n - 1).bit_length()
     lits = rng.integers(0, 256, n, dtype=np.uint8)
@@ -148,9 +178,24 @@ def k5_cases(n, seed):
     def cmds(*cols):
         return tuple(np.array(c, np.int32) for c in cols)
 
+    rle = cmds([1], [n - 1], [1])
     cases = [("literals", lits, cmds([n], [0], [0]), full),
-             ("rle", lits[:1], cmds([1], [n - 1], [1]), full),
-             ("rle cut", lits[:1], cmds([1], [n - 1], [1]), 10)]
+             ("rle", lits[:1], rle, full)]
+    cases += [(f"rle cut {k}", lits[:1], rle, k)
+              for k in (0, 1, full // 2, full - 1)]
+
+    def commands(nl, nc, dist_of):
+        """Cut the commands to n outputs; the distances from
+        dist_of(first copy position of each command)."""
+        ends = np.cumsum(nl + nc)
+        k = int(np.searchsorted(ends, n)) + 1
+        nl, nc = nl[:k].copy(), nc[:k].copy()
+        rest = n - (int(ends[k - 2]) if k > 1 else 0)
+        nl[-1] = min(nl[-1], rest)
+        nc[-1] = rest - nl[-1]
+        dist = dist_of(np.cumsum(nl + nc) - nc)
+        return lits[:int(nl.sum())], cmds(nl, nc, dist)
+
     # random commands: inserts of 0..11, copies of 0 or 2..39 bytes,
     # half the distances 1..4 (overlapping chains), half anywhere back
     k = n // 16
@@ -158,41 +203,45 @@ def k5_cases(n, seed):
     nl[0] = max(nl[0], 1)
     nc = rng.integers(0, 40, k)
     nc[nc == 1] = 2
-    ends = np.cumsum(nl + nc)
-    k = int(np.searchsorted(ends, n)) + 1
-    nl, nc = nl[:k], nc[:k]
-    rest = n - (int(ends[k - 2]) if k > 1 else 0)
-    nl[-1] = min(nl[-1], rest)
-    nc[-1] = rest - nl[-1]
-    first_copy = np.cumsum(nl + nc) - nc  # start + nlit
-    far = rng.integers(1, first_copy + 1)
-    near = np.minimum(rng.integers(1, 5, k), first_copy)
-    dist = np.where(rng.random(k) < 0.5, near, far)
-    cases.append(("random", lits[:int(nl.sum())],
-                  cmds(nl, nc, dist), full))
+    cases.append(("random", *commands(nl, nc, lambda fc: np.where(
+        rng.random(len(fc)) < 0.5, np.minimum(rng.integers(1, 5, len(fc)),
+                                              fc),
+        rng.integers(1, fc + 1))), full))
+    # chains across hundreds of tiles: one literal, then 30 to 60 bytes
+    # copied from 20,000 to 30,000 back (K5's tile is 8,192)
+    k = n // 30
+    nl = np.ones(k, np.int64)
+    nl[0] = 30_000
+    nc = rng.integers(30, 61, k)
+    cases.append(("cross tiles", *commands(nl, nc, lambda fc: np.minimum(
+        rng.integers(20_000, 30_001, len(fc)), fc)), full))
     return cases
 
 
-def k6_case(nfields, seed, overflow=False):
+def k6_case(nfields, seed, kind="seeded"):
     """Seeded K6 fields and code tables: (vals, markers, tables, bit0).
     Six in ten fields raw with 0 bits (the plan's empty slots), one raw
     with 1..24 bits, 1.5 literals, one command and half a distance
-    symbol; tables of random codes and lengths 0..15. With `overflow`
-    every field is 24 raw bits, past the words' end."""
+    symbol; tables of random codes and lengths 0..15. Kinds: "overflow",
+    every field 24 raw bits, past the words' end from the first tile
+    on; "wide", one raw field of 40 bits in the middle (its tile takes
+    the slow path)."""
     rng = np.random.default_rng(seed)
-    kind = rng.choice(5, nfields, p=[0.6, 0.1, 0.15, 0.1, 0.05])
+    kind_of = rng.choice(5, nfields, p=[0.6, 0.1, 0.15, 0.1, 0.05])
     vals = rng.integers(-2 ** 31, 2 ** 31, nfields).astype(np.int32)
     mk = np.zeros(nfields, np.int32)
     for kd, marker, lo, hi in ((1, None, 0, 0), (2, -2, 0, 256),
                                (3, -1, 0, 704), (4, -1, 4096, 4160)):
-        sel = kind == kd
+        sel = kind_of == kd
         if marker is None:
             mk[sel] = rng.integers(1, 25, int(sel.sum()))
         else:
             mk[sel] = marker
             vals[sel] = rng.integers(lo, hi, int(sel.sum()))
-    if overflow:
+    if kind == "overflow":
         mk[:] = 24
+    elif kind == "wide":
+        mk[nfields // 2 + 1234] = 40
     tables = []
     for size in (256, 704, 64):
         tables += [rng.integers(0, 1 << 15, size).astype(np.int32),
@@ -262,36 +311,58 @@ def seeded_k5_k6(dev, n5=1 << 24, b6=1 << 22):
     # the 4 MiB metablock's count; both are timed on the main path's real
     # inputs in phases 9 and 10. Every comparison is bitwise
     seeded = {"K5": {}, "K6": {}}
+    k5_stats = {}
     for label, lits, cmds, steps in k5_cases(n5, 7):
         la = torch.from_numpy(lits).to(dev)
         ct = [torch.from_numpy(c).to(dev) for c in cmds]
-        got, flag = kernels.lz_resolve(la, *ct, n5, steps)
+        got, flag, st = kernels.lz_resolve(la, *ct, n5, steps, stats=True)
         want = LZ.resolve_plain(la, *ct, n5, steps)
         seeded["K5"][label] = max_abs_err(got, want) + int(flag.item())
+        k5_stats[label] = st.tolist()
     # a copy from before the output sets K5's error flag
     _, flag = kernels.lz_resolve(la[:1], *(torch.tensor(
         [v], dtype=torch.int32, device=dev) for v in (1, n5 - 1, 2)), n5,
         24)
     if int(flag.item()) == 0:
         sys.exit("chip_smoke: K5 took a copy from before the output")
+    print(f"[3] K5 lz_resolve at n_out={n5}: [positions left after the "
+          f"tile collapse, hops, most hops of one position] {k5_stats}",
+          flush=True)
     del la, ct, got, want
     nf6, cw6 = 5 * (b6 // 4 + 8) + b6, b6 // 2 + 64
-    for label, over in (("seeded", False), ("overflow", True)):
-        v6, m6, t6, bit0 = k6_case(nf6, 11, over)
+    k6_slow = {}
+    for label, kind in (("seeded", "seeded"), ("overflow", "overflow"),
+                        ("overflow mid-tile", "seeded"), ("wide", "wide")):
+        v6, m6, t6, bit0 = k6_case(nf6, 11, kind)
         v6, m6 = torch.from_numpy(v6).to(dev), torch.from_numpy(m6).to(dev)
         t6 = [torch.from_numpy(t).to(dev) for t in t6]
-        words, total = kernels.bitpack(v6, m6, t6, bit0, cw6)
-        pw, pt = BP.pack_plain(v6, m6, *t6, bit0, cw6)
+        cap = cw6
+        if label == "overflow mid-tile":  # the words end 60% in
+            cap = int(seeded["K6"]["seeded bits"] * 0.6) // 32
+        words, total, slow = kernels.bitpack(v6, m6, t6, bit0, cap,
+                                             stats=True)
+        pw, pt = BP.pack_plain(v6, m6, *t6, bit0, cap)
         seeded["K6"][label] = max(max_abs_err(words, pw),
                                   abs(int(total) - int(pt)))
         seeded["K6"][label + " bits"] = int(pt)
+        k6_slow[label] = int(slow)
     print(f"[3] K5 lz_resolve at n_out={n5}, K6 bitpack at {nf6} fields "
-          f"(cap {32 * cw6} bits): max_abs_err, total bits {seeded}",
+          f"(cap {32 * cw6} bits): max_abs_err, total bits {seeded}; K6 "
+          f"slow-path tiles {k6_slow} of {-(-nf6 // kernels.PACK_TILE)}",
           flush=True)
     if any(v for k in ("K5", "K6") for lb, v in seeded[k].items()
            if not lb.endswith("bits")):
         sys.exit(f"chip_smoke: K5 or K6 disagree with their plain "
                  f"versions: {seeded}")
+    # 24 bits a field: the tiles whose span reaches the last word
+    ends6 = 24 * np.minimum(np.arange(1, -(-nf6 // kernels.PACK_TILE) + 1)
+                            * kernels.PACK_TILE, nf6)
+    over = int(((seeded["K6"]["overflow bits"] - 24 * nf6 + ends6 - 1)
+                >> 5 >= cw6 - 1).sum())
+    if k6_slow["seeded"] or k6_slow["wide"] != 1 or \
+            k6_slow["overflow"] != over or not k6_slow["overflow mid-tile"]:
+        sys.exit(f"chip_smoke: K6's slow path took the wrong tiles: "
+                 f"{k6_slow}")
     del v6, m6, t6, words, pw
     torch.cuda.empty_cache()
     return seeded
@@ -358,8 +429,14 @@ def device_serializer(corpus, part, q5_out, out2, rows, seeded, card):
         nbytes=(vals6.numel() + mk6.numel() + sum(t.numel() for t in tabs6)
                 + cw6) * 4,
         nops=vals6.numel() * 16)
+    slow6 = int(kernels.bitpack(pk[0], pk[1], pk[2:8], pk[8], pk[9],
+                                stats=True)[2])
     print(f"    K6 on the first metablock's {vals6.numel()} fields: "
-          f"max_abs_err {err6}, total bits {int(pt)}", flush=True)
+          f"max_abs_err {err6}, total bits {int(pt)}, slow-path tiles "
+          f"{slow6}", flush=True)
+    print("    K6's launches on the card (torch.profiler): " + "; ".join(
+        launch_split(lambda: kernels.bitpack(pk[0], pk[1], pk[2:8], pk[8],
+                                             pk[9]))), flush=True)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         BP.plan(*first_args["plan"])
@@ -428,15 +505,24 @@ def device_decoder(corpus, streams, rows, seeded, dev, card):
               f"[{card}]; traced ms {split}; {len(cn)} commands, "
               f"{len(lits)} literals, chain depth {depth}, {steps} rounds",
               flush=True)
+        args5 = (torch.from_numpy(np.frombuffer(lits, np.uint8).copy())
+                 .to(dev), *(torch.from_numpy(c.astype(np.int32)).to(dev)
+                             for c in (cn, cc, cd)), n_out, steps)
+        left, hops, most = kernels.lz_resolve(*args5, stats=True)[2].tolist()
+        print(f"    K5 on the {label} stream's parse: {left} positions "
+              f"({left / n_out:.4f}) left after the tile collapse, {hops} "
+              f"hops of the global jumps ({hops / max(left, 1):.3f} a "
+              f"position left), at most {most} for one position",
+              flush=True)
         if label == streams[0][0]:
-            real5 = (torch.from_numpy(np.frombuffer(lits, np.uint8).copy())
-                     .to(dev), *(torch.from_numpy(c.astype(np.int32)).to(dev)
-                                 for c in (cn, cc, cd)), n_out, steps)
+            real5 = args5
     got, flag = kernels.lz_resolve(*real5)
     err5 = max_abs_err(got, LZ.resolve_plain(*real5)) + int(flag.item())
     print(f"    K5 on the {streams[0][0]} stream's parse: max_abs_err {err5}",
           flush=True)
-    la5, nl5, n5, steps5 = real5[0], real5[1], real5[4], real5[5]
+    print("    K5's launches on the card (torch.profiler): " + "; ".join(
+        launch_split(lambda: kernels.lz_resolve(*real5))), flush=True)
+    la5, nl5, n5 = real5[0], real5[1], real5[4]
     rows["K5"] = dict(
         name="lz_resolve", route="cuda",
         source="brotli_tpu_torch/csrc/lz_resolve.cu",
@@ -457,9 +543,9 @@ def device_decoder(corpus, streams, rows, seeded, dev, card):
               f"(the card alone {r['device_ms']:.3f} ms), plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) [{card}]")
-    print(f"    K5 lz_resolve: its doubling moves ~12 B a position a round "
-          f"and the setup ~8: {(12 * steps5 + 8) * n5 / PEAK_BYTES * 1e3:.3f}"
-          f" ms for {steps5} rounds at {n5} positions")
+    print(f"    K5 lz_resolve: the floor of its design, the states' round "
+          f"trip (8 B a position written, 8 read) and the bytes out: "
+          f"{17 * n5 / PEAK_BYTES * 1e3:.3f} ms at {n5} positions")
     bad = [k for k in ("K5", "K6") if rows[k]["max_abs_err"] != 0]
     if bad:
         sys.exit(f"chip_smoke: kernels disagree with their plain "

@@ -372,3 +372,219 @@ def test_compress_sharded_device_serializer_matches_jax(one_device, data,
                                  device="cpu")
     assert len(native) < len(out) < 1.08 * len(native)
     _decodes(out, data)
+
+
+# ---------------------------------------------------------------------
+# a numpy model of K6's design (csrc/bitpack.cu) at a shrunk tile
+# ---------------------------------------------------------------------
+
+LO32, BIG = (1 << 32) - 1, 1 << 32
+
+
+def _combine(a, b):
+    """Two bit counts as (sum mod 2**32) | BIG once either reached
+    2**32: what a descriptor carries."""
+    s = (a & LO32) + (b & LO32)
+    return (s & LO32) | ((a | b | s) & BIG)
+
+
+def _resolve_fields(vals, markers, tables):
+    """(code, nb) as uint64 lanes holding uint32 values."""
+    lit_code, lit_len, cmd_code, cmd_len, dist_code, dist_len = (
+        np.asarray(t, np.int64) for t in tables)
+    v = np.asarray(vals, np.int64)
+    m = np.asarray(markers, np.int64)
+    dsym = (m == -1) & (v >= 4096)
+    csym = (m == -1) & ~dsym
+    lit = m == -2
+    w = np.where(dsym, v - 4096, v)
+    lv, cv, dv = np.clip(w, 0, 255), np.clip(w, 0, 703), np.clip(w, 0, 63)
+    code = np.select([lit, csym, dsym], [lit_code[lv], cmd_code[cv],
+                                         dist_code[dv]], w)
+    nb = np.select([lit, csym, dsym], [lit_len[lv], cmd_len[cv],
+                                       dist_len[dv]], np.maximum(m, 0))
+    return (code & LO32).astype(np.uint64), (nb & LO32).astype(np.uint64)
+
+
+def _k6_model(vals, markers, tables, bit0, cap_words, threads, items,
+              seed=0):
+    """The kernel's steps, tile by tile in ticket order: the fields
+    resolved once, per-thread sums of `items` consecutive fields and one
+    block scan, the start from a look-back (over a seeded mix of
+    predecessors that have or have not published their inclusive
+    prefix), then the fast path (the tile's words ORed in a buffer of
+    tile + 1 words, interior words stored, the first and last added) or
+    the slow path (per-field adds, clipped, offsets mod 2**32). Returns
+    (words int32, total, slow tiles)."""
+    tile = threads * items
+    code, nb = _resolve_fields(vals, markers, tables)
+    n = len(nb)
+    ntiles = max(1, -(-n // tile))
+    words = np.zeros(cap_words, np.uint64)
+    touched = np.zeros(cap_words, bool)
+    last = cap_words - 1
+    agg_d, incl_d = [], []
+    published = np.random.default_rng(seed).random(ntiles) < 0.3
+    slow = 0
+    for c in range(ntiles):
+        f = slice(c * tile, min((c + 1) * tile, n))
+        nbt = np.zeros(tile, np.uint64)
+        nbt[:f.stop - f.start] = nb[f]
+        codet = np.zeros(tile, np.uint64)
+        codet[:f.stop - f.start] = code[f]
+        per = nbt.reshape(threads, items)
+        sums = per.sum(1)
+        ex = ((np.cumsum(sums) - sums)[:, None] +
+              np.cumsum(per, 1) - per).ravel()
+        agg = int(sums.sum())
+        a = (agg & LO32) | (BIG if agg >> 32 else 0)
+        start = bit0
+        if c > 0:  # the look-back: aggregates back to an inclusive one
+            start, q = 0, c - 1
+            while q > 0 and not published[q]:
+                start = _combine(start, agg_d[q])
+                q -= 1
+            start = _combine(start, incl_d[q])
+        agg_d.append(a)
+        incl_d.append(_combine(start, a))
+        s = start & LO32
+        wraps = bool(start & BIG) or s + agg > 1 << 32
+        fast = not (nbt > 32).any() and not wraps and \
+            (agg == 0 or (s + agg - 1) >> 5 < last)
+        if agg == 0:
+            continue
+        off = s + ex.astype(object)  # exact
+        off = np.array([int(o) for o in off], np.uint64)
+        mask = np.where(nbt >= 32, LO32,
+                        (np.uint64(1) << np.minimum(nbt, 31)) - 1)
+        t = (codet & mask) << (off & np.uint64(31))
+        lo, hi = t & np.uint64(LO32), t >> np.uint64(32)
+        live = nbt > 0
+        if fast:
+            w0 = s >> 5
+            buf = np.zeros(tile + 1, np.uint64)
+            k = (off >> np.uint64(5)).astype(np.int64) - w0
+            np.bitwise_or.at(buf, k[live], lo[live])
+            np.bitwise_or.at(buf, k[live] + 1, hi[live])
+            nw = ((s + agg + 31) >> 5) - w0
+            assert 1 <= nw <= tile + 1 and not buf[nw:].any()
+            inner = slice(w0 + 1, w0 + nw - 1)
+            assert not touched[inner].any()  # no other tile writes there
+            words[inner] = buf[1:nw - 1]
+            touched[inner] = True
+            for k0 in {0, nw - 1}:
+                words[w0 + k0] += buf[k0]
+                touched[w0 + k0] = True
+        else:
+            slow += 1
+            idx = ((off & np.uint64(LO32)) >> np.uint64(5)).astype(np.int64)
+            np.add.at(words, np.minimum(idx[live], last), lo[live])
+            np.add.at(words, np.minimum(idx[live] + 1, last), hi[live])
+    total = incl_d[-1] & LO32
+    return (words & np.uint64(LO32)).astype(np.uint32).view(np.int32), \
+        total, slow
+
+
+def _k6_check(vals, markers, tables, bit0, cap_words, threads=16,
+              items=4):
+    """The model against pack_plain and the JAX pack_kernel (which
+    _pack_both holds equal); returns the model's slow tiles."""
+    ref_w, ref_t = JB.pack_kernel(
+        jnp.asarray(vals), jnp.asarray(markers),
+        *map(jnp.asarray, tables), jnp.uint32(bit0), cap_words=cap_words)
+    total = _pack_both(vals, markers, tables, bit0, cap_words)
+    words, mtotal, slow = _k6_model(vals, markers, tables, bit0, cap_words,
+                                    threads, items)
+    np.testing.assert_array_equal(words.view(np.uint32), np.asarray(ref_w))
+    assert mtotal == total == int(ref_t)
+    return slow
+
+
+def _k6_fields(rng, n, zero_share=0.6, max_raw=24):
+    kind = rng.choice(4, n, p=[zero_share, (1 - zero_share) / 3,
+                               (1 - zero_share) / 3, (1 - zero_share) / 3])
+    vals = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    markers = np.zeros(n, np.int32)
+    raw = kind == 1
+    markers[raw] = rng.integers(1, max_raw + 1, int(raw.sum()))
+    markers[kind == 2] = -2
+    vals[kind == 2] = rng.integers(0, 256, int((kind == 2).sum()))
+    markers[kind == 3] = -1
+    vals[kind == 3] = np.where(rng.random(int((kind == 3).sum())) < 0.5,
+                               rng.integers(0, 704, int((kind == 3).sum())),
+                               4096 + rng.integers(0, 64,
+                                                   int((kind == 3).sum())))
+    return vals, markers
+
+
+@pytest.mark.parametrize("bit0", [0, 1, 7, 17, 31])
+def test_k6_model_seeded(bit0):
+    """Every marker kind, runs of empty fields (a few whole tiles of
+    them), fields straddling the tiles' edges, every bit0: no slow
+    tile."""
+    rng = np.random.default_rng(100 + bit0)
+    n = 64 * 40 + 37
+    vals, markers = _k6_fields(rng, n)
+    markers[64 * 5:64 * 9] = 0   # four tiles of nothing
+    markers[64 * 20 + 3:64 * 21 - 2] = 0
+    assert _k6_check(vals, markers, _tables(rng), bit0, n) == 0
+
+
+@pytest.mark.parametrize("where", ["table", "raw"])
+def test_k6_model_wide_fields(where):
+    """Fields of more than 32 bits (a code table's length, or a raw
+    marker) take the slow path in their tiles only."""
+    rng = np.random.default_rng(7)
+    n = 64 * 20
+    vals, markers = _k6_fields(rng, n)
+    tables = _tables(rng)
+    if where == "table":
+        tables[1][:8] = 40  # literal lengths
+        markers[64 * 3 + 5] = -2
+        vals[64 * 3 + 5] = 3
+    else:
+        markers[64 * 3 + 5] = 33
+        markers[64 * 11] = 45
+    slow = _k6_check(vals, markers, tables, 5, n)
+    assert 1 <= slow <= 2 if where == "raw" else slow >= 1
+
+
+@pytest.mark.parametrize("share", [0.3, 0.7, 0.97])
+def test_k6_model_span_reaches_cap(share):
+    """Words that overflow the buffer add into its last word: the
+    tiles whose span reaches cap_words - 1 take the slow path, the
+    tiles before them do not (cap_words a share of the payload's)."""
+    rng = np.random.default_rng(int(share * 100))
+    n = 64 * 30
+    vals, markers = _k6_fields(rng, n, zero_share=0.2)
+    tables = _tables(rng)
+    _, nb = _resolve_fields(vals, markers, tables)
+    cap_words = int(share * (int(nb.sum()) + 9) / 32)
+    slow = _k6_check(vals, markers, tables, 9, cap_words)
+    assert 0 < slow < 30
+
+
+def test_k6_model_offsets_wrap():
+    """Three raw fields of 2**31 - 1 bits carry the offsets past 2**32:
+    every tile from there on takes the slow path and its offsets wrap,
+    as the JAX code's uint32 cumsum does."""
+    rng = np.random.default_rng(3)
+    n = 64 * 12
+    vals, markers = _k6_fields(rng, n)
+    markers[64 * 4 + 10] = markers[64 * 4 + 11] = 2 ** 31 - 1
+    markers[64 * 6 + 1] = 2 ** 31 - 1
+    slow = _k6_check(vals, markers, _tables(rng), 2, 4 * n)
+    assert slow >= 12 - 6
+
+
+def test_k6_model_real_plan(block):
+    """The real plan of a 64 KiB metablock at 4,096-field tiles (256
+    threads of 16, the kernel's own sizes): no slow tile."""
+    raw, matches = block
+    got, _ = _plan_both(raw, matches, RINGS["initial"], MB)
+    vals, markers, h_lit, h_cmd, h_dist = got[:5]
+    tables = []
+    for h in (h_lit, h_cmd, h_dist):
+        _, le, c = PD._tables(h.astype(np.int64), len(h))
+        tables += [c, le]
+    assert _k6_check(vals, markers, tables, 3, MB // 2 + 64, 256, 16) == 0

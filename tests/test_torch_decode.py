@@ -224,3 +224,193 @@ def test_round_count():
     assert PL.n_steps_for(1) == 1
     assert PL.n_steps_for(1 << 20, max_depth=5) == 3
     assert PL.n_steps_for(1 << 20, max_depth=1 << 30) == 20
+
+
+# ---------------------------------------------------------------------
+# a numpy model of K5's design (csrc/lz_resolve.cu) at a shrunk tile
+# ---------------------------------------------------------------------
+
+def _k5_model(lits, nlit, ncopy, dist, n_out, n_steps, tile, threads,
+              in_place=False):
+    """The kernel's steps: per tile a cooperative search of the first
+    command (`threads` probes a round), the tile's literals (consecutive
+    from the first command's), each command's literal and copy runs
+    marked where they start in the tile and max-scanned, each position's
+    state (resolved byte and
+    depth 0, or a pointer j - dist at depth 1; a bad copy resolves to 0
+    and sets err), the pointers into the tile jumped until none is
+    left; then the global jumps and the depth mask. The jumps run out of
+    place (every position reads, then every position writes) or, with
+    `in_place`, one position at a time in ascending order: two of the
+    schedules the kernel's threads may take, which must agree. Returns
+    (out, err, unresolved after the tile collapse, global rounds)."""
+    nlit, ncopy, dist = (np.asarray(a, np.int64) for a in (nlit, ncopy,
+                                                           dist))
+    lits = np.frombuffer(bytes(lits), np.uint8) if len(lits) else \
+        np.zeros(1, np.uint8)
+    adv = nlit + ncopy
+    ends = np.cumsum(adv)
+    lit_off = np.cumsum(nlit) - nlit
+    ncmd = len(ends)
+    res = np.zeros(n_out, bool)
+    low = np.zeros(n_out, np.int64)  # byte if resolved, else target
+    dep = np.zeros(n_out, np.int64)
+    err = False
+
+    def jump(act_of):
+        """Jump the positions act_of() selects until none is left;
+        returns the rounds."""
+        rounds = 0
+        while True:
+            act = np.flatnonzero(act_of())
+            if len(act) == 0:
+                return rounds
+            rounds += 1
+            if in_place:
+                for p in act:
+                    t = low[p]
+                    res[p], low[p], dep[p] = res[t], low[t], dep[p] + dep[t]
+            else:
+                t = low[act]
+                res[act], low[act], dep[act] = res[t], low[t], \
+                    dep[act] + dep[t]
+            assert rounds <= 64
+
+    left = 0
+    for t0 in range(0, n_out, tile):
+        t1 = min(t0 + tile, n_out)
+        lo, hi = 0, ncmd
+        while lo < hi:
+            step = -(-(hi - lo) // threads)
+            q = lo + np.arange(threads) * step
+            c = int(((q < hi) & (ends[np.minimum(q, ncmd - 1)] <= t0)).sum())
+            if c == 0:
+                hi = lo
+            else:
+                hi = min(lo + c * step, hi)
+                lo += (c - 1) * step + 1
+        assert lo == np.searchsorted(ends, t0, side="right")
+        # each command marks its literal run and its copy run where
+        # they start in the tile (clipped to 0): key m + 1, the kind and
+        # lit_off - start or dist; a max-scan carries each position's run
+        key = np.zeros(t1 - t0, np.int64)
+        is_copy = np.zeros(t1 - t0, bool)
+        val = np.zeros(t1 - t0, np.int64)
+        k = lo
+        while True:
+            ks = np.arange(k, min(k + threads, ncmd))
+            s0 = ends[ks] - adv[ks]
+            inside = s0 < t1
+            m1 = s0 - t0
+            m2 = m1 + nlit[ks]
+            for sel, m, copy, v in (
+                    (inside & (nlit[ks] > 0) & (m2 > 0), m1, False,
+                     lit_off[ks] - s0),
+                    (inside & (ncopy[ks] > 0) & (m2 < t1 - t0), m2, True,
+                     dist[ks])):
+                at = np.maximum(m[sel], 0)
+                assert key[at].max(initial=0) == 0  # one mark a position
+                key[at], is_copy[at], val[at] = at + 1, copy, v[sel]
+            if inside.sum() < threads:
+                break
+            k += threads
+        run = np.maximum.accumulate(key) - 1
+        assert run[0] == 0
+        is_copy, val = is_copy[run], val[run]
+        j = np.arange(t0, t1)
+        is_lit = ~is_copy
+        src = j - val
+        ok = is_lit | ((src >= 0) & (src < j))
+        err |= not ok.all()
+        li = np.clip(val + j, 0, len(lits) - 1)
+        # the tile's literals are consecutive from l0, which the kernel
+        # stages in shared memory
+        l0 = lit_off[lo] + min(max(t0 - (ends[lo] - adv[lo]), 0), nlit[lo])
+        if nlit.sum() <= len(lits):
+            np.testing.assert_array_equal(li[is_lit],
+                                          l0 + np.arange(is_lit.sum()))
+        res[t0:t1] = is_lit | ~ok
+        low[t0:t1] = np.where(is_lit, lits[li], np.where(ok, src, 0))
+        dep[t0:t1] = np.where(is_lit | ~ok, 0, 1)
+        sl = slice(t0, t1)
+        jump(lambda: np.concatenate([np.zeros(t0, bool),
+                                     ~res[sl] & (low[sl] >= t0),
+                                     np.zeros(n_out - t1, bool)]))
+        assert (res[sl] | (low[sl] < t0)).all()
+        left += int((~res[sl]).sum())
+    rounds = jump(lambda: ~res)
+    limit = 1 << n_steps if n_steps < 31 else 1 << 62
+    out = np.where(dep <= limit, low, 0).astype(np.uint8)
+    return out, err, left, rounds
+
+
+def _k5_cases():
+    """(label, lits, (nlit, ncopy, dist)) small command lists: one deep
+    RLE chain (distance 1 and 3 with zero-length commands between),
+    chains that cross many tiles (copies one to three tiles back), and
+    a part-full last tile."""
+    rng = np.random.default_rng(11)
+    lits = rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    cases = [("rle", lits[:3], ([1, 0, 2, 0], [2999, 0, 1500, 0],
+                                [1, 0, 3, 0]))]
+    k = 400
+    nl = rng.integers(0, 3, k)
+    nl[0] = 5
+    nc = rng.integers(20, 80, k)
+    first_copy = np.cumsum(nl + nc) - nc
+    far = np.minimum(rng.integers(60, 200, k), first_copy)
+    cases.append(("cross tiles", lits[:int(nl.sum())], (nl, nc, far)))
+    n = 64 * 37 + 13
+    nl = np.array([7, 0, 3, 1])
+    nc = np.array([0, 1000, 0, n - 1011])
+    cases.append(("part-full tile", lits[:11], (nl, nc, [0, 5, 0, 70])))
+    return cases
+
+
+K5_CASES = _k5_cases()
+
+
+@pytest.mark.parametrize("case", range(len(K5_CASES)),
+                         ids=[c[0] for c in K5_CASES])
+def test_k5_model_every_round_count(case):
+    """The model, out of place and in place, against resolve_plain and
+    the JAX _resolve at every n_steps from 0 to full, at a 64-position
+    tile of 8 threads."""
+    _, lits, cmds = K5_CASES[case]
+    n_out = int(np.sum(cmds[0]) + np.sum(cmds[1]))
+    full = PL.n_steps_for(n_out)
+    parse = (lits, *(np.asarray(c, np.uint32) for c in cmds), None)
+    for n_steps in range(full + 1):
+        ref = _resolve_both(parse, n_steps)
+        for in_place in (False, True):
+            out, err, left, rounds = _k5_model(lits, *cmds, n_out, n_steps,
+                                               64, 8, in_place)
+            np.testing.assert_array_equal(out, ref)
+            assert not err
+    # the collapse leaves the cross-tile pointers; the rle chain's
+    # tiles each point one tile back
+    assert left > 0 and rounds > 0
+
+
+@pytest.mark.parametrize("name", ["corpus q5", "rle q5"])
+def test_k5_model_real_parse(name):
+    """The real parse of an in-repo stream at 1,024-position tiles of 64
+    threads, at the full round count and cut to half."""
+    data = ENCODES[name]()
+    lits, cn, cc, cd, depth = parse = PN.parse_stream(data)
+    n_out = int(cn.sum(dtype=np.int64) + cc.sum(dtype=np.int64))
+    full = PL.n_steps_for(n_out, depth)
+    for n_steps in (full, full // 2):
+        ref = _resolve_both(parse, n_steps)
+        out, err, left, rounds = _k5_model(
+            lits, *(c.astype(np.int64) for c in (cn, cc, cd)), n_out,
+            n_steps, 1024, 64)
+        np.testing.assert_array_equal(out, ref)
+        assert not err and 0 < left < n_out and rounds <= full + 1
+
+
+def test_k5_model_bad_copy():
+    """A copy from before the output sets err and resolves to 0, as in
+    the kernel (the wrapper then raises); the copies of it give 0 too."""
+    out, err, _, _ = _k5_model(b"\x07", [1], [5], [2], 6, 3, 64, 8)
+    assert err and out.tolist() == [7, 0, 7, 0, 7, 0]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import brotli_tpu
 import brotli_tpu_torch as bt
 from brotli_tpu import native as JN
 from brotli_tpu.enc import encoder as JE
@@ -64,3 +65,23 @@ def test_compress_matches_jax_stream(v3, data, quality, lgblock):
     assert len(out) < len(data) // 3
     assert JN.decode(out) == data
     assert bt.decompress(out) == data
+
+
+def test_positional_arguments_match_jax(v3, data):
+    """Both packages take (string, mode, quality, lgwin, lgblock, ...)
+    and (string, dictionary, large_window) in that order: the positional
+    call gives the JAX stream, a positional mode or dictionary reaches
+    the port's M13 refusal, not another argument."""
+    arr = np.frombuffer(data, np.uint8)
+    ref = JE._encode_q11_streamed(arr, len(arr),
+                                  C.max_backward_distance(22), 11, 16, 22)
+    out = bt.compress(data, 0, 11, 22, 16, device="cpu")
+    assert out == ref
+    assert bt.decompress(out, None, False) == data == \
+        brotli_tpu.decompress(out, None, False)
+    with pytest.raises(NotImplementedError, match="modes"):
+        bt.compress(data, 1)  # MODE_TEXT, as in brotli_tpu
+    with pytest.raises(NotImplementedError, match="M13"):
+        bt.decompress(out, b"dict")
+    with pytest.raises(NotImplementedError, match="M13"):
+        bt.decompress(out, None, True)
