@@ -1,11 +1,30 @@
 """brotli_tpu_torch: the PyTorch/CUDA port of brotli_tpu.
 
-The device half (the q10/q11 optimal-parse DP) runs as hand-written
-CUDA kernels for Hopper (csrc/); the host half is copied from
-brotli_tpu, so this package imports neither JAX nor brotli_tpu.
-Entry points run on the card unless the caller passes device="cpu".
+The device half (the q10/q11 optimal-parse DP, the q<=9 LZ matcher, the
+device serializer's bit pack, the device decoder's LZ resolve) runs as
+hand-written CUDA kernels for Hopper (csrc/); the host half is copied
+from brotli_tpu, so this package imports neither JAX nor brotli_tpu.
+Device entry points run on the card unless the caller passes
+device="cpu"; the native routes of the public API need no card.
+
+Public API as brotli_tpu's (python/brotli.py of the reference):
+``compress``, ``decompress``, ``decompress_concatenated``,
+``Compressor``, ``Decompressor``, ``error``.
 """
 
-from .api import compress, decompress, error  # noqa: F401
+from .api import (  # noqa: F401
+    set_reporting_callbacks,
+    MODE_GENERIC,
+    MODE_TEXT,
+    MODE_FONT,
+    Compressor,
+    Decompressor,
+    compress,
+    decompress,
+    decompress_concatenated,
+    error,
+    estimate_peak_memory,
+)
 
 __version__ = "0.1.0"
+version = __version__  # parity: python/brotli.py `version`

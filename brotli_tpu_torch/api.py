@@ -1,85 +1,198 @@
-"""Public API of the port: one-shot `compress` through the q10/q11
-device optimal-parse pipeline, `decompress` through the native decoder
-or the device decoder, and one `error` type (the brotli_tpu.api
-surface, without the streaming classes yet). The q<=9 device encode is
-`parallel.shard.compress_sharded`."""
+"""Public API of the port (the brotli_tpu.api surface): module-level
+``compress``/``decompress``/``decompress_concatenated``, streaming
+``Compressor``/``Decompressor`` (with ``output_buffer_limit``
+back-pressure), ``estimate_peak_memory``, the reporting hooks and a
+single ``error`` exception type.
 
-import numpy as np
+``compress`` routes as brotli_tpu does (enc/encoder.encode): q10/q11 on
+256 KiB or more runs the device DP on the card, everything else the
+port serves runs the native runtime. The streaming classes and the
+other decoders are the native runtime's; ``decompress(decoder="device")``
+resolves on the card. What only the JAX package's Python pipeline and
+decoder serve raises NotImplementedError (ROADMAP M13, second slice).
+"""
 
 from . import native
 from .dec.device_decode import decompress_device
-from .enc.encoder import (_encode_q11_streamed, _sanitize_params,
-                          _store_uncompressed)
-from .format import constants as C
-from .utils.device import resolve
+from .enc.encoder import (_SECOND_SLICE, StreamingEncoder, _serialized,
+                          encode)
 
-MIN_DEVICE_INPUT = 1 << 18  # the JAX package's device-encode threshold
+# Compression modes (parity: c/include/brotli/encode.h BrotliEncoderMode).
+MODE_GENERIC = 0
+MODE_TEXT = 1
+MODE_FONT = 2
+
+_QUALITY_DEFAULT = 11
+_LGWIN_DEFAULT = 22
 
 
 class error(Exception):
     """Raised on invalid input or parameters (parity: brotli.error)."""
 
 
-def compress(string, mode=0, quality=11, lgwin=22, lgblock=0,
-             dictionary=None, large_window=False, base64_mode=False, *,
+# reporting seam (BrotliEncoderOnStart/OnFinish role): process-wide
+# hooks observing every compress call
+_on_start = None
+_on_finish = None
+
+
+def set_reporting_callbacks(on_start=None, on_finish=None):
+    """Install metrics hooks: on_start(op: str, in_len: int) and
+    on_finish(op: str, in_len: int, out_len: int)."""
+    global _on_start, _on_finish
+    _on_start = on_start
+    _on_finish = on_finish
+
+
+def estimate_peak_memory(input_size, quality=_QUALITY_DEFAULT,
+                         lgwin=_LGWIN_DEFAULT) -> int:
+    """Upper bound (bytes) on the native encoder's transient heap for a
+    one-shot encode of `input_size` bytes (the
+    BrotliEncoderEstimatePeakMemoryUsage role), excluding the caller's
+    own input and output copies. The device route's memory is the
+    card's (torch.cuda.max_memory_allocated)."""
+    return native.peak_memory(input_size, quality, lgwin)
+
+
+def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
+             lgwin=_LGWIN_DEFAULT, lgblock=0, dictionary=None,
+             large_window=False, base64_mode=False, *, encoder="auto",
              device=None) -> bytes:
-    """One-shot q10/q11 compression on `device` (None = "cuda"; "cpu"
-    runs the plain PyTorch versions of the kernels). The positional
-    order is brotli_tpu.compress's. Qualities up to 9, inputs under
-    256 KiB, dictionaries, large windows, base64 mode and modes other
-    than generic are not ported yet and raise NotImplementedError."""
-    quality, lgwin, lgblock = _sanitize_params(quality, lgwin, lgblock)
-    raw = bytes(string)
-    n = len(raw)
-    if quality < 10:
-        raise NotImplementedError(
-            "quality <= 9: the native one-shot encoder, and the device "
-            "matcher's route through the Python metablock writer "
-            "(ROADMAP M13; parallel.shard.compress_sharded runs the "
-            "device matcher)")
-    if n < MIN_DEVICE_INPUT:
-        raise NotImplementedError(
-            "inputs under 256 KiB take the host tiers (ROADMAP M13)")
-    if dictionary is not None or large_window or mode != 0 or base64_mode:
-        raise NotImplementedError(
-            "dictionaries, large windows, base64 mode and modes "
-            "(ROADMAP M13)")
-    dev = resolve(device)
-    arr = np.frombuffer(raw, dtype=np.uint8)
+    """One-shot compression; the positional order is
+    brotli_tpu.compress's. `large_window` allows lgwin up to 30 (non-RFC
+    extension; the receiver must opt in too). `dictionary`: raw LZ77
+    bytes, attached as a compound dictionary.
+
+    `encoder` takes the place of the JAX package's BROTLI_TPU_ENCODER:
+    "auto" runs q10/q11 on 256 KiB or more (mode 0, no dictionary,
+    lgwin <= 24) on `device` (None = "cuda", raising without it; "cpu"
+    runs the plain versions of the kernels) and the rest on the native
+    encoder; "native" runs everything there; "device" only the card's
+    inputs. See enc/encoder.encode for what raises NotImplementedError."""
+    if _on_start is not None:
+        _on_start("compress", len(string))
     try:
-        out = _encode_q11_streamed(arr, n, C.max_backward_distance(lgwin),
-                                   quality, lgblock, lgwin, dev)
+        out = encode(bytes(string), quality=quality, lgwin=lgwin,
+                     lgblock=lgblock, mode=mode, dictionary=dictionary,
+                     large_window=large_window, base64_mode=base64_mode,
+                     encoder=encoder, device=device)
     except ValueError as e:
         raise error(str(e)) from e
-    if len(out) >= n + 4:
-        return _store_uncompressed(arr, lgwin)
+    if _on_finish is not None:
+        _on_finish("compress", len(string), len(out))
     return out
 
 
 def decompress(string, dictionary=None, large_window=False, *,
                decoder="native", device=None) -> bytes:
     """Decode a complete brotli stream; the positional order is
-    brotli_tpu.decompress's. `decoder` takes the place of the JAX
-    package's BROTLI_TPU_DECODER: "native" is the native decoder;
-    "device" the native symbol parse (which takes `large_window`) and
-    the LZ resolve on `device` (None = "cuda", raising without it;
-    "cpu" runs the plain resolve); "python", the Python decoder, is not
-    ported yet. Dictionaries, and `large_window` through the native
-    decoder, raise NotImplementedError (ROADMAP M13)."""
+    brotli_tpu.decompress's. `dictionary`: raw LZ77 bytes (compound
+    dictionary); `large_window`: accept the non-RFC large-window
+    extension. `decoder` takes the place of the JAX package's
+    BROTLI_TPU_DECODER: "native" is the native decoder; "device" the
+    native symbol parse and the LZ resolve on `device` (None = "cuda",
+    raising without it; "cpu" runs the plain resolve), without a
+    dictionary. The Python decoder ("python"), serialized dictionaries
+    and the device decoder with a dictionary are not ported yet and
+    raise NotImplementedError."""
     if decoder == "python":
-        raise NotImplementedError("the Python decoder (ROADMAP M13)")
+        raise NotImplementedError(f"the Python decoder ({_SECOND_SLICE})")
     if decoder not in ("native", "device"):
         raise ValueError(f"unknown decoder {decoder!r}")
-    if dictionary:
-        raise NotImplementedError("decoding with a dictionary (ROADMAP M13)")
-    if large_window and decoder == "native":
+    if _serialized(dictionary):
         raise NotImplementedError(
-            "large windows through the native decoder (ROADMAP M13; "
-            "decoder=\"device\" takes them)")
+            f"serialized shared dictionaries ({_SECOND_SLICE})")
+    if dictionary and decoder == "device":
+        raise NotImplementedError(
+            "decoder='device' with a dictionary: the JAX package runs "
+            f"its Python decoder there ({_SECOND_SLICE})")
     try:
         if decoder == "device":
             return decompress_device(bytes(string), large_window,
                                      device=device)
-        return native.decode(bytes(string))
+        return native.decode(bytes(string),
+                             compound=bytes(dictionary or b""),
+                             large_window=large_window)
     except ValueError as e:
         raise error(str(e)) from e
+
+
+def decompress_concatenated(string) -> bytes:
+    """Decode back-to-back concatenated streams (the reference CLI's
+    brcat / --concatenated mode): the chunked native decoder reports
+    the exact end of each stream."""
+    data = bytes(string)
+    out = []
+    offset = 0
+    while offset < len(data):
+        sd = native.StreamDecoder(allow_trailing=True)
+        try:
+            out.append(sd.feed(data[offset:]))
+        except native.DecodeError as e:
+            raise error(str(e)) from e
+        if not sd.finished:
+            raise error("truncated concatenated stream")
+        consumed = sd.consumed
+        if consumed == 0:
+            raise error("stalled decoding concatenated stream")
+        offset += consumed
+    return b"".join(out)
+
+
+class Compressor:
+    """Streaming compressor (process/flush/finish) over the native
+    stream encoder. ``flush`` emits a byte-aligned, independently
+    decodable prefix (FLUSH semantics of BrotliEncoderCompressStream);
+    ``finish`` closes the stream. Modes 1 and 2 raise
+    NotImplementedError."""
+
+    def __init__(self, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
+                 lgwin=_LGWIN_DEFAULT, lgblock=0):
+        self._enc = StreamingEncoder(quality=quality, lgwin=lgwin,
+                                     lgblock=lgblock, mode=mode)
+
+    def process(self, string) -> bytes:
+        return self._enc.process(bytes(string))
+
+    def flush(self) -> bytes:
+        return self._enc.flush()
+
+    def emit_metadata(self, payload) -> bytes:
+        """Emit buffered input, then a metadata block (parity:
+        BROTLI_OPERATION_EMIT_METADATA)."""
+        return self._enc.emit_metadata(bytes(payload))
+
+    def finish(self) -> bytes:
+        return self._enc.finish()
+
+
+class Decompressor:
+    """Streaming decompressor over the native chunked decoder, with
+    output back-pressure: ``output_buffer_limit`` caps the bytes one
+    ``process`` call returns (parity: python/_brotli.c Decompressor),
+    and the decoder suspends at the cap, mid-metablock or mid-copy, so
+    a small chunk that expands enormously is never materialized. While
+    output is pending, ``can_accept_more_data()`` is False and
+    ``process(b"")`` drains the next slice. A raw dictionary attaches
+    as compound data; a serialized one raises NotImplementedError."""
+
+    def __init__(self, dictionary=None):
+        if _serialized(dictionary):
+            raise NotImplementedError(
+                f"serialized shared dictionaries ({_SECOND_SLICE})")
+        self._inc = native.StreamDecoder(compound=bytes(dictionary or b""))
+
+    def process(self, string=b"", output_buffer_limit=None) -> bytes:
+        if string and not self.can_accept_more_data():
+            raise error("cannot accept more data: drain pending output")
+        self._inc.set_output_limit(output_buffer_limit or 0)
+        try:
+            return self._inc.feed(bytes(string))
+        except ValueError as e:
+            raise error(str(e)) from e
+
+    def is_finished(self) -> bool:
+        return self._inc.finished and not self._inc.pending_output
+
+    def can_accept_more_data(self) -> bool:
+        return not self._inc.finished and not self._inc.pending_output

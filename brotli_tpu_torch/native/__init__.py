@@ -1,8 +1,9 @@
-"""Native host runtime (C), trimmed to what the port's device pipelines
-call: the seed parse, the static-dictionary probe and post-pass, the
-region serializer, package-merge code lengths, the decoder and the
-device decoder's symbol parse. Copy of the ctypes bindings of
-brotli_tpu.native over verbatim copies of its C sources.
+"""Native host runtime (C): the one-shot and streaming encoders and
+decoders behind the public API, and what the port's device pipelines
+call (the seed parse, the static-dictionary probe and post-pass, the
+region serializer, package-merge code lengths, the device decoder's
+symbol parse). Copy of the ctypes bindings of brotli_tpu.native over
+verbatim copies of its C sources.
 
 The library is compiled with the system compiler into `_build/` at
 first use; it is never committed.
@@ -16,6 +17,7 @@ import threading
 
 import numpy as np
 
+from ..dec.errors import NAMES
 from ..format.dictionary import dictionary_data
 
 _DIR = pathlib.Path(__file__).resolve().parent
@@ -98,17 +100,66 @@ def get_lib():
                 ctypes.POINTER(ctypes.c_size_t),
                 ctypes.POINTER(ctypes.c_uint32)]
             lib.btpu_parse_stream.restype = ctypes.c_int
+            lib.btpu_encode2.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_encode2.restype = ctypes.c_int
+            lib.btpu_peak_memory.argtypes = [
+                ctypes.c_size_t, ctypes.c_int, ctypes.c_int]
+            lib.btpu_peak_memory.restype = ctypes.c_size_t
+            lib.btpu_enc_new.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_char_p]
+            lib.btpu_enc_new.restype = ctypes.c_void_p
+            lib.btpu_enc_chunk.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_enc_chunk.restype = ctypes.c_int
+            lib.btpu_enc_attach.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
+            lib.btpu_enc_attach.restype = ctypes.c_int
+            lib.btpu_enc_metadata.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_enc_metadata.restype = ctypes.c_int
+            lib.btpu_enc_free_stream.argtypes = [ctypes.c_void_p]
+            lib.btpu_enc_free_stream.restype = None
+            lib.btpu_dec_new.argtypes = []
+            lib.btpu_dec_new.restype = ctypes.c_void_p
+            lib.btpu_dec_chunk.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p,
+                ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_dec_chunk.restype = ctypes.c_int
+            lib.btpu_dec_allow_trailing.argtypes = [ctypes.c_void_p,
+                                                    ctypes.c_int]
+            lib.btpu_dec_allow_trailing.restype = None
+            lib.btpu_dec_set_output_limit.argtypes = [ctypes.c_void_p,
+                                                      ctypes.c_size_t]
+            lib.btpu_dec_set_output_limit.restype = None
+            for fn, res in (("btpu_dec_consumed", ctypes.c_size_t),
+                            ("btpu_dec_finished", ctypes.c_int),
+                            ("btpu_dec_retained", ctypes.c_size_t),
+                            ("btpu_dec_free", None)):
+                getattr(lib, fn).argtypes = [ctypes.c_void_p]
+                getattr(lib, fn).restype = res
             _lib = lib
     return _lib
 
 
 class DecodeError(ValueError):
     """Native decode failure; `code` is the reference's
-    BrotliDecoderErrorCode value."""
+    BrotliDecoderErrorCode value (see dec/errors.py)."""
 
     def __init__(self, code: int):
         self.code = code
-        super().__init__(f"decode error {code}")
+        super().__init__(
+            f"decode error {NAMES.get(code, code)} ({code})")
 
 
 _ENC_ERRORS = {
@@ -121,21 +172,201 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def decode(data: bytes) -> bytes:
-    """Native whole-buffer decode; raises DecodeError on invalid
-    streams."""
-    lib = get_lib()
-    out_ptr = ctypes.c_void_p()
-    out_len = ctypes.c_size_t()
-    rc = lib.btpu_decode_ex(data, len(data), dictionary_data(), None, 0,
-                            0, ctypes.byref(out_ptr),
-                            ctypes.byref(out_len))
-    if rc != 0:
-        raise DecodeError(rc)
+def _take(lib, out_ptr, out_len) -> bytes:
+    """The bytes of a buffer the library allocated, which it frees."""
+    if not out_ptr.value:
+        return b""
     try:
         return ctypes.string_at(out_ptr, out_len.value)
     finally:
         lib.btpu_free(out_ptr)
+
+
+def decode(data: bytes, compound: bytes = b"",
+           large_window: bool = False) -> bytes:
+    """Native whole-buffer decode; raises DecodeError on invalid
+    streams. `compound`: attached raw (compound) dictionary bytes.
+    `large_window`: accept the non-RFC large-window extension."""
+    lib = get_lib()
+    out_ptr = ctypes.c_void_p()
+    out_len = ctypes.c_size_t()
+    rc = lib.btpu_decode_ex(data, len(data), dictionary_data(),
+                            compound or None, len(compound),
+                            1 if large_window else 0,
+                            ctypes.byref(out_ptr), ctypes.byref(out_len))
+    if rc != 0:
+        raise DecodeError(rc)
+    return _take(lib, out_ptr, out_len)
+
+
+def encode(data: bytes, quality: int, lgwin: int,
+           mode: int = 0) -> bytes:
+    """Native one-shot encode (quality 0-11, lgwin 10-30 with the
+    large-window extension; q10/11 run the native optimal-parse tier).
+    `mode`: BrotliEncoderMode hint (1 TEXT forces the UTF8 context
+    model, 2 FONT the signed-byte model)."""
+    lib = get_lib()
+    out_ptr = ctypes.c_void_p()
+    out_len = ctypes.c_size_t()
+    rc = lib.btpu_encode2(data, len(data), quality, lgwin, mode,
+                          dictionary_data(), ctypes.byref(out_ptr),
+                          ctypes.byref(out_len))
+    if rc != 0:
+        raise ValueError(_ENC_ERRORS.get(rc, f"encode error {rc}"))
+    return _take(lib, out_ptr, out_len)
+
+
+def encode_with_dict(data: bytes, quality: int, lgwin: int,
+                     dictionary: bytes) -> bytes:
+    """One-shot native encode with an attached raw compound dictionary
+    (BrotliEncoderAttachPreparedDictionary role)."""
+    enc = StreamEncoder(quality, lgwin, dictionary=dictionary)
+    return enc._chunk(bytes(data), 2)
+
+
+def peak_memory(input_size: int, quality: int, lgwin: int) -> int:
+    """Bound on the native encoder's transient heap for a one-shot
+    encode of `input_size` bytes (btpu_peak_memory)."""
+    return int(get_lib().btpu_peak_memory(int(input_size), int(quality),
+                                          int(lgwin)))
+
+
+class StreamEncoder:
+    """Native streaming encoder: hash-chain state persists across
+    chunks (BrotliEncoderCompressStream PROCESS/FLUSH/FINISH role)."""
+
+    def __init__(self, quality: int, lgwin: int,
+                 dictionary: bytes = None):
+        self._lib = get_lib()
+        self._st = self._lib.btpu_enc_new(quality, lgwin,
+                                          dictionary_data())
+        if not self._st:
+            raise ValueError("unsupported native stream parameters")
+        if dictionary:
+            # a raw (compound) dictionary preloaded as history: emitted
+            # distances land in the compound address space
+            d = bytes(dictionary)
+            rc = self._lib.btpu_enc_attach(self._st, d, len(d))
+            if rc != 0:
+                raise ValueError(
+                    _ENC_ERRORS.get(rc, f"attach error {rc}"))
+
+    def _chunk(self, data: bytes, op: int) -> bytes:
+        out_ptr = ctypes.c_void_p()
+        out_len = ctypes.c_size_t()
+        rc = self._lib.btpu_enc_chunk(self._st, data, len(data), op,
+                                      ctypes.byref(out_ptr),
+                                      ctypes.byref(out_len))
+        if rc != 0:
+            raise ValueError(_ENC_ERRORS.get(rc, f"encode error {rc}"))
+        return _take(self._lib, out_ptr, out_len)
+
+    def process(self, data: bytes) -> bytes:
+        return self._chunk(bytes(data), 0)
+
+    def flush(self) -> bytes:
+        return self._chunk(b"", 1)
+
+    def emit_metadata(self, payload: bytes) -> bytes:
+        out_ptr = ctypes.c_void_p()
+        out_len = ctypes.c_size_t()
+        rc = self._lib.btpu_enc_metadata(self._st, payload, len(payload),
+                                         ctypes.byref(out_ptr),
+                                         ctypes.byref(out_len))
+        if rc != 0:
+            raise ValueError(_ENC_ERRORS.get(rc, f"encode error {rc}"))
+        return _take(self._lib, out_ptr, out_len)
+
+    def finish(self) -> bytes:
+        return self._chunk(b"", 2)
+
+    def __del__(self):
+        st = getattr(self, "_st", None)
+        if st:
+            self._lib.btpu_enc_free_stream(st)
+            self._st = None
+
+
+class StreamDecoder:
+    """Native chunked decoder: resumes inside a metablock at command /
+    literal-run granularity (BrotliDecoderDecompressStream role), so the
+    consumed prefix of the input is dropped and memory stays bounded by
+    the window and the chunk. Accumulates input; each feed() returns
+    the newly decoded bytes."""
+
+    def __init__(self, compound: bytes = b"", large_window: bool = False,
+                 allow_trailing: bool = False):
+        self._lib = get_lib()
+        self._st = self._lib.btpu_dec_new()
+        if not self._st:
+            raise MemoryError("decoder state")
+        if allow_trailing:
+            # bytes after the stream's end belong to the next
+            # concatenated stream (`consumed` marks the boundary)
+            self._lib.btpu_dec_allow_trailing(self._st, 1)
+        self._dict = dictionary_data()
+        self._compound = bytes(compound or b"")
+        self._large = 1 if large_window else 0
+        self._buf = bytearray()
+        self._base = 0  # absolute offset of _buf[0]
+        self.finished = False
+        # suspended at the output limit: feed(b"") resumes
+        self.pending_output = False
+
+    def set_output_limit(self, limit: int) -> None:
+        """Cap the new output bytes of each feed() (0 = unlimited); at
+        the cap decoding suspends, so a small chunk that expands
+        enormously is never expanded eagerly."""
+        if self._st is None:
+            raise ValueError("decoder closed")
+        self._lib.btpu_dec_set_output_limit(self._st, int(limit))
+
+    def feed(self, data: bytes, final: bool = False) -> bytes:
+        if self._st is None:
+            raise ValueError("decoder closed")
+        self._buf += data
+        inp = bytes(self._buf)
+        out_ptr = ctypes.c_void_p()
+        out_len = ctypes.c_size_t()
+        rc = self._lib.btpu_dec_chunk(
+            self._st, inp, len(inp), self._base, self._dict,
+            self._compound or None, len(self._compound), self._large,
+            1 if final else 0, ctypes.byref(out_ptr),
+            ctypes.byref(out_len))
+        if rc < 0:
+            raise DecodeError(rc)
+        self.pending_output = (rc == 2)
+        out = (ctypes.string_at(out_ptr, out_len.value)
+               if out_ptr.value and out_len.value else b"")
+        consumed = self._lib.btpu_dec_consumed(self._st)
+        if consumed > self._base:
+            del self._buf[: consumed - self._base]
+            self._base = consumed
+        if rc == 0 and self._lib.btpu_dec_finished(self._st):
+            self.finished = True
+        return out
+
+    @property
+    def retained_output(self) -> int:
+        """Bytes held in the native output buffer (the window, and
+        slices not yet delivered under back-pressure)."""
+        if self._st is None:
+            raise ValueError("decoder closed")
+        return int(self._lib.btpu_dec_retained(self._st))
+
+    @property
+    def consumed(self) -> int:
+        """Absolute input bytes consumed so far; once `finished`, the
+        exact end of the stream (the concatenation point)."""
+        if self._st is None:
+            raise ValueError("decoder closed")
+        return int(self._lib.btpu_dec_consumed(self._st))
+
+    def __del__(self):
+        st = getattr(self, "_st", None)
+        if st:
+            self._lib.btpu_dec_free(st)
+            self._st = None
 
 
 def parse_stream(data: bytes, large_window: bool = False):

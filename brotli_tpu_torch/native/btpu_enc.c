@@ -1574,6 +1574,8 @@ typedef struct BTreeS {
   uint32_t* head; /* [1<<BT_HBITS] root pos+1 per hash */
   uint32_t* lr;   /* [2 * wsize]: {left, right} child pos+1 per slot */
   size_t wmask;   /* wsize - 1, wsize = pow2 >= min(n, window) */
+  int open_end;   /* more input may follow the data compared so far
+                     (the stream encoder) */
 } BTree;
 
 static int bt_alloc(BTree* bt, size_t n, size_t window) {
@@ -1632,6 +1634,16 @@ static inline size_t bt_walk(BTree* bt, const uint8_t* data, size_t pos,
       best = l;
     }
     if (l >= limit) {
+      if (bt->open_end && limit < BT_MAX_CMP) {
+        /* equal only up to the end of the input so far: their order
+           past it is unknown, and the node's children, placed against
+           it, could land on the wrong side of the new node once more
+           input arrives (a later walk would then assume a common
+           prefix that is not there). Drop the rest of the subtree. */
+        *pl = 0;
+        *pr = 0;
+        break;
+      }
       /* full-length duplicate: the new node replaces it entirely */
       *pl = clr[0];
       *pr = clr[1];
@@ -4949,6 +4961,77 @@ static inline uint32_t stream_map_dist(EncStream* S, size_t pos,
   return (uint32_t)(maxd + (S->dict_len - cand));
 }
 
+/* Bytes of a copy from concat position `cand` that lie in the
+   preloaded dictionary, when the copy runs on past its end (0 when it
+   does not cross). The decoder refuses a compound reference that runs
+   past the dictionary (decode.c InitializeCompoundDictionaryCopy), so
+   such a copy is split at the dictionary's end. */
+static inline size_t stream_dict_head(const EncStream* S, size_t cand,
+                                      size_t len) {
+  return cand < S->dict_len && cand + len > S->dict_len
+      ? S->dict_len - cand : 0;
+}
+
+/* Split every copy that crosses the dictionary's end (concat space,
+   before stream_remap_cmds): a head of 2+ bytes stays a compound
+   reference and the rest of 2+ bytes follows at the same distance, out
+   of the output; a head of 1 byte, or a rest of 1 byte, becomes a
+   literal. *cmds may be reallocated. */
+static int stream_split_cmds(EncStream* S, Cmd** cmds, size_t* ncmd,
+                             size_t lo) {
+  if (!S->dict_len) return 0;
+  size_t pos = lo, extra = 0;
+  for (size_t i = 0; i < *ncmd; i++) {
+    Cmd* c = &(*cmds)[i];
+    pos += c->ins;
+    if (!(c->adv & CMD_DICT) && c->dist && c->dist <= pos &&
+        stream_dict_head(S, pos - c->dist, c->adv))
+      extra++;
+    pos += c->adv & ~CMD_DICT;
+  }
+  if (!extra) return 0;
+  Cmd* out = (Cmd*)malloc(sizeof(Cmd) * (*ncmd + 2 * extra));
+  if (!out) return EERR_ALLOC;
+  size_t k = 0;
+  uint32_t carry = 0; /* a split's last byte, now a literal */
+  pos = lo;
+  for (size_t i = 0; i < *ncmd; i++) {
+    Cmd c = (*cmds)[i];
+    pos += c.ins; /* the copy's position as parsed */
+    c.ins += carry;
+    carry = 0;
+    size_t adv = c.adv & ~CMD_DICT;
+    size_t head = (!(c.adv & CMD_DICT) && c.dist && c.dist <= pos)
+        ? stream_dict_head(S, pos - c.dist, adv) : 0;
+    if (!head) {
+      out[k++] = c;
+    } else if (head == 1) {
+      c.ins += 1;
+      c.cpy = c.adv = (uint32_t)(adv - 1);
+      out[k++] = c;
+    } else if (adv - head == 1) {
+      c.cpy = c.adv = (uint32_t)head;
+      out[k++] = c;
+      carry = 1;
+    } else {
+      Cmd tail = {0, (uint32_t)(adv - head), c.dist,
+                  (uint32_t)(adv - head)};
+      c.cpy = c.adv = (uint32_t)head;
+      out[k++] = c;
+      out[k++] = tail;
+    }
+    pos += adv;
+  }
+  if (carry) {
+    Cmd last = {carry, 0, 0, 0};
+    out[k++] = last;
+  }
+  free(*cmds);
+  *cmds = out;
+  *ncmd = k;
+  return 0;
+}
+
 /* Remap every command's distance in a parsed region (opt tier path:
    commands come back from the DP in concat space). */
 static void stream_remap_cmds(EncStream* S, Cmd* cmds, size_t ncmd,
@@ -5025,6 +5108,7 @@ void* btpu_enc_new(int quality, int lgwin, const uint8_t* dict_blob) {
     S->cfg_dp.lr_bits = 15;
     if (!getenv("BTPU_OPT_NO_BT") &&
         bt_alloc(&S->bt_dp, S->e.maxback, S->e.maxback) == 0) {
+      S->bt_dp.open_end = 1;
       S->cfg_dp.bt = &S->bt_dp;
       S->cfg_dp.block_bits = 0;
     }
@@ -5037,8 +5121,10 @@ void* btpu_enc_new(int quality, int lgwin, const uint8_t* dict_blob) {
     S->cfg_dp2.bt = NULL;
     if (quality >= 11) {
       if (S->cfg_dp.bt &&
-          bt_alloc(&S->bt_dp2, S->e.maxback, S->e.maxback) == 0)
+          bt_alloc(&S->bt_dp2, S->e.maxback, S->e.maxback) == 0) {
+        S->bt_dp2.open_end = 1;
         S->cfg_dp2.bt = &S->bt_dp2;
+      }
       dp_rc = dp_rc || cfg_alloc_tables(&S->cfg_dp2, 0);
     } else {
       S->cfg_dp2.lr_bits = 0;
@@ -5150,26 +5236,35 @@ static int stream_consume(EncStream* S, size_t until) {
           }
         }
       }
-      uint32_t emit_dist = S->dict_len
-          ? stream_map_dist(S, pos, m.dist) : (uint32_t)m.dist;
-      if ((rc = stream_push_cmd(S, (uint32_t)(pos - S->lit_start),
-                                (uint32_t)m.len, emit_dist,
-                                (uint32_t)m.len)))
-        return rc;
-      S->copy_bytes += m.len;
-      if (emit_dist != S->sim_ring[0]) {
-        S->sim_ring[3] = S->sim_ring[2];
-        S->sim_ring[2] = S->sim_ring[1];
-        S->sim_ring[1] = S->sim_ring[0];
-        S->sim_ring[0] = emit_dist;
-      }
       size_t end = pos + m.len;
+      /* the copies [at[j], at[j] + len[j]) for j in [first, ncp): a
+         copy crossing the dictionary's end splits there, as in
+         stream_split_cmds (a 1-byte head or rest stays a literal) */
+      size_t head = stream_dict_head(S, pos - m.dist, m.len);
+      size_t at[2] = {pos, pos + head};
+      size_t len[2] = {head ? head : m.len, m.len - head};
+      int first = head == 1, ncp = head && m.len - head > 1 ? 2 : 1;
+      for (int j = first; j < ncp; j++) {
+        uint32_t emit_dist = S->dict_len
+            ? stream_map_dist(S, at[j], m.dist) : (uint32_t)m.dist;
+        if ((rc = stream_push_cmd(S, (uint32_t)(at[j] - S->lit_start),
+                                  (uint32_t)len[j], emit_dist,
+                                  (uint32_t)len[j])))
+          return rc;
+        S->copy_bytes += len[j];
+        if (emit_dist != S->sim_ring[0]) {
+          S->sim_ring[3] = S->sim_ring[2];
+          S->sim_ring[2] = S->sim_ring[1];
+          S->sim_ring[1] = S->sim_ring[0];
+          S->sim_ring[0] = emit_dist;
+        }
+        S->lit_start = at[j] + len[j];
+      }
       size_t step = m.len > 256 ? 4 : 1;
       if (!pos_inserted) insert_hash(data, pos, &S->cfg);
       for (size_t p2 = pos + 1; p2 < end; p2 += step)
         insert_hash_ex(data, p2, &S->cfg, 0);
       S->pos = end;
-      S->lit_start = S->pos;
       S->miss_run = 0;
     } else {
       insert_hash(data, pos, &S->cfg);
@@ -5278,6 +5373,10 @@ static int opt_stream_consume(EncStream* S, size_t until, int last) {
       free(cmds);
       cmds = cmds2;
       ncmd = ncmd2;
+    }
+    if ((rc = stream_split_cmds(S, &cmds, &ncmd, lo))) {
+      free(cmds);
+      return rc;
     }
     stream_remap_cmds(S, cmds, ncmd, lo);
     S->e.data = data;

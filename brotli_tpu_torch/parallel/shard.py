@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..enc import bitstream, matcher
+from ..enc.encoder import encode
 from ..format import constants as C
 from ..ops.matcher import find_matches_device
 from ..ops.optimal import find_matches_optimal
@@ -41,11 +42,14 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     threads; "device" plans the symbol stream and packs the payload bits
     on the card (trivial single-tree metablocks, slightly larger).
 
+    An empty input, or one under n_shards * 64 KiB, is one stream of
+    the port's one-shot encoder (enc/encoder.encode on `device`), as in
+    the JAX package.
+
     Not ported yet, and raising NotImplementedError: more CUDA devices
     than one with n_shards > 1 (the mesh, ROADMAP M7), gather=
-    "collective" (M7/M10), and use_device=False or inputs under
-    n_shards * 64 KiB, where the JAX package takes its host encoder
-    (M13)."""
+    "collective" (M7/M10), and use_device=False, where the JAX package
+    takes its host vectorized matcher (M13, second slice)."""
     dev = resolve(device)
     if gather != "host":
         raise NotImplementedError(
@@ -54,7 +58,8 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
         raise ValueError(f"unknown serializer {serializer!r}")
     if not use_device:
         raise NotImplementedError(
-            "use_device=False takes the host encoder (ROADMAP M13)")
+            "use_device=False takes the host vectorized matcher "
+            "(ROADMAP M13, second slice)")
     raw = bytes(data)
     arr = np.frombuffer(raw, dtype=np.uint8)
     n = len(arr)
@@ -62,9 +67,7 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
         n_shards = max(torch.cuda.device_count(), 1) \
             if dev.type == "cuda" else 1
     if n == 0 or n < n_shards * (1 << 16):
-        raise NotImplementedError(
-            "inputs under n_shards * 64 KiB take the host encoder "
-            "(ROADMAP M13)")
+        return encode(raw, quality=quality, lgwin=lgwin, device=dev)
 
     bounds = np.linspace(0, n, n_shards + 1).astype(np.int64)
     max_distance = C.max_backward_distance(lgwin)

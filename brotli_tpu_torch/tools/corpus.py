@@ -38,12 +38,14 @@ def _dictionary_words():
     return words
 
 
-def build_corpus(size: int = 16 << 20, seed: int = 0) -> bytes:
-    """`size` bytes: the C sources, Zipf-weighted dictionary text, then
-    5% random bytes (all cut to fit `size`)."""
+def build_corpus(size: int = 16 << 20, seed: int = 0,
+                 sources=_NATIVE) -> bytes:
+    """`size` bytes: the C sources (btpu_enc.c and btpu_dec.c in the
+    directory `sources`, the port's by default), Zipf-weighted
+    dictionary text, then 5% random bytes (all cut to fit `size`)."""
     rng = np.random.default_rng(seed)
     n_random = size // 20
-    head = b"".join((_NATIVE / f).read_bytes()
+    head = b"".join((pathlib.Path(sources) / f).read_bytes()
                     for f in ("btpu_enc.c", "btpu_dec.c"))
     head = head[:size - n_random]
     n_text = size - n_random - len(head)

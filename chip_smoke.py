@@ -35,7 +35,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
      q5 streams of phases 4 and 6 against the native decoder (K5 once a
      stream), the parse and resolve split, and K5 against its plain
      version on the real parse of the q11 stream (and timed there);
- 11. print the kernels line (launches on each kernel's path, errors,
+ 11. the public surface (api, cli): compress at q1, q5 and q9 on the
+     native route (no kernel launched), q11 on a 4 MiB prefix through
+     the card (K1, K3, K4 once each) and through encoder="native" side
+     by side, Compressor/Decompressor in 1 MiB pieces with
+     back-pressure, decompress_concatenated of phases 4 and 6's
+     streams, a raw dictionary, a large window, and the CLI at q11 in a
+     subprocess (the card's bytes) and back with -d;
+ 12. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
@@ -54,9 +61,12 @@ Run from the repository root: python3 chip_smoke.py
 """
 
 import json
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -553,6 +563,131 @@ def device_decoder(corpus, streams, rows, seeded, dev, card):
     return launches_dec
 
 
+def public_surface(corpus, q11_out, q5_out, card):
+    """Phase 11: the public API and the CLI over the native runtime and
+    the card. Every item prints its bytes, wall and MB/s."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch.ops import kernels
+
+    def item(label, fn, n_in):
+        out, wall = timed(fn)
+        print(f"    {label}: {n_in} B -> {len(out)} B in {wall:.3f} s = "
+              f"{n_in / wall / 1e6:.3f} MB/s [{card}]", flush=True)
+        return out
+
+    print("[11] the public surface: api and cli", flush=True)
+    for q in (1, 5, 9):
+        kernels.reset_launches()
+        out = item(f"compress q{q} (native)",
+                   lambda: bt.compress(corpus, quality=q), len(corpus))
+        if any(kernels.LAUNCHES.values()):
+            sys.exit(f"chip_smoke: the native q{q} route launched "
+                     f"{kernels.LAUNCHES}")
+        if bt.decompress(out) != corpus:
+            sys.exit(f"chip_smoke: the native q{q} stream does not decode")
+
+    part = corpus[:4 << 20]
+    kernels.reset_launches()
+    on_card = item("compress q11, 4 MiB, the card (default)",
+                   lambda: bt.compress(part, quality=11), len(part))
+    launches = dict(kernels.LAUNCHES)
+    print(f"    launches {launches}", flush=True)
+    native_q11 = item("compress q11, 4 MiB, encoder='native'",
+                      lambda: bt.compress(part, quality=11,
+                                          encoder="native"), len(part))
+    if any(launches[k] != 1
+           for k in ("suffix_min", "dp_scan", "dp_backtrack")):
+        sys.exit(f"chip_smoke: the card's q11 route launched {launches}, "
+                 f"not K1, K3 and K4 once each")
+    if on_card == native_q11:
+        sys.exit("chip_smoke: the card's and the native q11 streams agree")
+    if bt.decompress(on_card) != part or bt.decompress(native_q11) != part:
+        sys.exit("chip_smoke: a q11 stream of the 4 MiB prefix does not "
+                 "decode")
+    print(f"    q11 on 4 MiB: native - card = "
+          f"{len(native_q11) - len(on_card)} B", flush=True)
+
+    def stream_both_ways():
+        c = bt.Compressor(quality=5)
+        pieces = []
+        for i in range(0, len(corpus), 1 << 20):
+            pieces += [c.process(corpus[i:i + (1 << 20)]), c.flush()]
+        pieces.append(c.finish())
+        comp = b"".join(pieces)
+        d = bt.Decompressor()
+        back, pos, calls = [], 0, 0
+        while not d.is_finished():
+            piece = b""
+            if d.can_accept_more_data():
+                if pos == len(comp):
+                    sys.exit("chip_smoke: Decompressor did not finish")
+                piece = comp[pos:pos + (1 << 20)]
+                pos += len(piece)
+            back.append(d.process(piece, output_buffer_limit=1 << 20))
+            calls += 1
+            if len(back[-1]) > 1 << 20:
+                sys.exit("chip_smoke: Decompressor exceeded its limit")
+        return comp, b"".join(back), calls
+
+    (comp, back, calls), wall = timed(stream_both_ways)
+    print(f"    Compressor q5 (1 MiB pieces, a flush each) {len(comp)} B, "
+          f"Decompressor at a 1 MiB limit ({calls} calls), both in "
+          f"{wall:.3f} s = {len(corpus) / wall / 1e6:.3f} MB/s [{card}]",
+          flush=True)
+    if back != corpus:
+        sys.exit("chip_smoke: the streaming round trip differs")
+
+    both = item("decompress_concatenated(q11 + q5 streams)",
+                lambda: bt.decompress_concatenated(q11_out + q5_out),
+                len(q11_out) + len(q5_out))
+    if both != corpus + corpus:
+        sys.exit("chip_smoke: decompress_concatenated differs")
+
+    dic, target = corpus[:1 << 20], corpus[1 << 20:5 << 20]
+    with_dict = item("compress q5, 4 MiB, the 1 MiB before as a raw "
+                     "dictionary",
+                     lambda: bt.compress(target, quality=5, dictionary=dic),
+                     len(target))
+    if bt.decompress(with_dict, dictionary=dic) != target:
+        sys.exit("chip_smoke: the raw-dictionary stream does not decode")
+    large = item("compress q5, lgwin 26, large_window",
+                 lambda: bt.compress(corpus, quality=5, lgwin=26,
+                                     large_window=True), len(corpus))
+    if bt.decompress(large, large_window=True) != corpus:
+        sys.exit("chip_smoke: the large-window stream does not decode")
+
+    prefix = corpus[:1 << 20]
+    in_process = bt.compress(prefix, quality=11)
+    native_prefix = bt.compress(prefix, quality=11, encoder="native")
+    here = pathlib.Path(__file__).resolve().parent
+    cli = [sys.executable, "-m", "brotli_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "prefix.bin")
+        with open(src, "wb") as f:
+            f.write(prefix)
+        t0 = time.perf_counter()
+        r = subprocess.run(cli + ["-q", "11", "-c", src], cwd=here,
+                           capture_output=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            sys.exit(f"chip_smoke: the CLI failed: {r.stderr.decode()}")
+        print(f"    cli -q 11 -c, 1 MiB: {len(r.stdout)} B in {wall:.3f} s "
+              f"(a new process) [{card}]; in process, the card "
+              f"{len(in_process)} B, native {len(native_prefix)} B",
+              flush=True)
+        if r.stdout != in_process or r.stdout == native_prefix:
+            sys.exit("chip_smoke: the CLI's q11 bytes are not the card's")
+        with open(os.path.join(tmp, "back.bin.br"), "wb") as f:
+            f.write(r.stdout)
+        r = subprocess.run(cli + ["-d", os.path.join(tmp, "back.bin.br")],
+                           cwd=here, capture_output=True, timeout=600)
+        if r.returncode != 0:
+            sys.exit(f"chip_smoke: cli -d failed: {r.stderr.decode()}")
+        with open(os.path.join(tmp, "back.bin"), "rb") as f:
+            if f.read() != prefix:
+                sys.exit("chip_smoke: cli -d did not give the file back")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -863,7 +998,10 @@ def main():
         corpus, (("q11", q11_out), ("q5", q5_out)), rows, seeded, dev,
         card)
 
-    # -- 11. report ------------------------------------------------------
+    # -- 11. the public surface -----------------------------------------
+    public_surface(corpus, q11_out, q5_out, card)
+
+    # -- 12. report ------------------------------------------------------
     path_launches = dict(launches, chain_select=launches_q5["chain_select"],
                          bitpack=launches_ds["bitpack"],
                          lz_resolve=launches_dec["lz_resolve"])

@@ -68,10 +68,11 @@ def test_compress_matches_jax_stream(v3, data, quality, lgblock):
 
 
 def test_positional_arguments_match_jax(v3, data):
-    """Both packages take (string, mode, quality, lgwin, lgblock, ...)
-    and (string, dictionary, large_window) in that order: the positional
-    call gives the JAX stream, a positional mode or dictionary reaches
-    the port's M13 refusal, not another argument."""
+    """Both packages take (string, mode, quality, lgwin, lgblock,
+    dictionary, large_window, ...) and (string, dictionary,
+    large_window) in that order: the positional call gives the JAX
+    stream, and a positional mode, dictionary or large window reaches
+    its own parameter (the JAX package's bytes and decodes)."""
     arr = np.frombuffer(data, np.uint8)
     ref = JE._encode_q11_streamed(arr, len(arr),
                                   C.max_backward_distance(22), 11, 16, 22)
@@ -79,9 +80,12 @@ def test_positional_arguments_match_jax(v3, data):
     assert out == ref
     assert bt.decompress(out, None, False) == data == \
         brotli_tpu.decompress(out, None, False)
-    with pytest.raises(NotImplementedError, match="modes"):
-        bt.compress(data, 1)  # MODE_TEXT, as in brotli_tpu
-    with pytest.raises(NotImplementedError, match="M13"):
-        bt.decompress(out, b"dict")
-    with pytest.raises(NotImplementedError, match="M13"):
-        bt.decompress(out, None, True)
+    small, dic = data[100_000:164_000], data[:40_000]
+    assert bt.compress(small, 1) == brotli_tpu.compress(small, 1)
+    with_dict = bt.compress(small, 0, 5, 22, 0, dic)
+    assert with_dict == brotli_tpu.compress(small, 0, 5, 22, 0, dic)
+    assert bt.decompress(with_dict, dic, False) == small == \
+        brotli_tpu.decompress(with_dict, dic, False)
+    large = bt.compress(small, 0, 5, 26, 0, None, True)
+    assert large == brotli_tpu.compress(small, 0, 5, 26, 0, None, True)
+    assert bt.decompress(large, None, True) == small

@@ -334,15 +334,32 @@ def test_no_cuda_raises(monkeypatch, arr):
         O.find_matches_optimal(arr, MAXD)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(quality=9), "M13"), (dict(quality=0), "M13"),
-    (dict(size=1000), "M13"), (dict(size=(1 << 18) - 1), "M13"),
-    (dict(dictionary=b"abc"), "M13"), (dict(large_window=True), "M13"),
-    (dict(mode=1), "M13"), (dict(mode=2), "M13")])
-def test_unported_options_raise(kwargs, item):
-    data = build_corpus(kwargs.pop("size", 1 << 18))
-    with pytest.raises(NotImplementedError, match=item):
-        bt.compress(data, device="cpu", **kwargs)
+_SERIALIZED = b"\x91\x00" + bytes(30)
+_UNPORTED = {
+    "serialized dictionary": lambda d: bt.compress(d, dictionary=_SERIALIZED),
+    "base64 mode": lambda d: bt.compress(d, quality=5, base64_mode=True),
+    "dictionary with mode 1": lambda d: bt.compress(d, mode=1,
+                                                    dictionary=b"abc"),
+    "encoder python": lambda d: bt.compress(d, encoder="python"),
+    "encoder device at q5": lambda d: bt.compress(d, quality=5,
+                                                  encoder="device"),
+    "Compressor mode 1": lambda d: bt.Compressor(mode=1),
+    "Decompressor serialized": lambda d: bt.Decompressor(_SERIALIZED),
+    "device decoder with a dictionary": lambda d: bt.decompress(
+        bt.compress(d, quality=1), dictionary=b"raw", decoder="device",
+        device="cpu"),
+    "compress_sharded use_device=False": lambda d: __import__(
+        "brotli_tpu_torch.parallel.shard", fromlist=["shard"])
+    .compress_sharded(d, use_device=False, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("case", list(_UNPORTED))
+def test_unported_options_raise(case):
+    """What only the JAX package's Python pipeline, Python decoder and
+    host matcher serve raises NotImplementedError naming its item."""
+    with pytest.raises(NotImplementedError, match="M13, second slice"):
+        _UNPORTED[case](build_corpus(1 << 16))
 
 
 def test_decompress_rejects_garbage():
@@ -378,11 +395,13 @@ def test_profile_busy_time_is_the_union():
 
 def test_import_isolation():
     """(h) importing the port, one CPU compress, one CPU
-    compress_sharded at q5 with each serializer and one CPU device
-    decode leave no JAX and no module of the JAX package behind."""
+    compress_sharded at q5 with each serializer, one CPU device decode,
+    a native compress, a Compressor/Decompressor round trip and the CLI
+    leave no JAX and no module of the JAX package behind."""
     code = "\n".join([
         "import sys",
         "import brotli_tpu_torch as bt",
+        "from brotli_tpu_torch import cli",
         "from brotli_tpu_torch.ops import matcher as M, optimal as O",
         "from brotli_tpu_torch.parallel.shard import compress_sharded",
         "from brotli_tpu_torch.tools.corpus import build_corpus",
@@ -396,6 +415,13 @@ def test_import_isolation():
         "out = compress_sharded(data, quality=5, n_shards=2, device='cpu',",
         "                       serializer='device')",
         "assert bt.decompress(out, decoder='device', device='cpu') == data",
+        "assert bt.decompress(bt.compress(data, quality=5)) == data",
+        "c = bt.Compressor(quality=5)",
+        "out = c.process(data[:100_000]) + c.flush() + c.process(data[100_000:])",
+        "out += c.finish()",
+        "d = bt.Decompressor()",
+        "assert d.process(out) == data and d.is_finished()",
+        "assert cli.main(['-V']) == 0",
         "print(sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'brotli_tpu')))",
     ])

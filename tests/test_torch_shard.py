@@ -141,8 +141,9 @@ def test_compress_sharded_needs_cuda(monkeypatch, data):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(gather="collective"), "M7/M10"),
-    (dict(use_device=False), "M13"), (dict(size=100_000, n_shards=2), "M13"),
-    (dict(size=0), "M13")])
+    (dict(use_device=False), "M13"),
+    (dict(size=100_000, n_shards=2, use_device=False), "M13"),
+    (dict(size=0, gather="collective"), "M7/M10")])
 def test_unported_options_raise(data, kwargs, item):
     size = kwargs.pop("size", len(data))
     with pytest.raises(NotImplementedError, match=item):
