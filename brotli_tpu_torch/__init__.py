@@ -9,7 +9,8 @@ device="cpu"; the native routes of the public API need no card.
 
 Public API as brotli_tpu's (python/brotli.py of the reference):
 ``compress``, ``decompress``, ``decompress_concatenated``,
-``Compressor``, ``Decompressor``, ``error``.
+``Compressor``, ``Decompressor``, ``error``; ``DPConfig`` chooses the
+device DP's variant (``compress(..., dp=DPConfig(mode="v1"))``).
 """
 
 from .api import (  # noqa: F401
@@ -25,6 +26,7 @@ from .api import (  # noqa: F401
     error,
     estimate_peak_memory,
 )
+from .ops.optimal import DPConfig  # noqa: F401
 
 __version__ = "0.1.0"
 version = __version__  # parity: python/brotli.py `version`

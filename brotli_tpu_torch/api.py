@@ -57,7 +57,7 @@ def estimate_peak_memory(input_size, quality=_QUALITY_DEFAULT,
 def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
              lgwin=_LGWIN_DEFAULT, lgblock=0, dictionary=None,
              large_window=False, base64_mode=False, *, encoder="auto",
-             device=None) -> bytes:
+             device=None, dp=None) -> bytes:
     """One-shot compression; the positional order is
     brotli_tpu.compress's. `large_window` allows lgwin up to 30 (non-RFC
     extension; the receiver must opt in too). `dictionary`: raw LZ77
@@ -68,14 +68,19 @@ def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
     lgwin <= 24) on `device` (None = "cuda", raising without it; "cpu"
     runs the plain versions of the kernels) and the rest on the native
     encoder; "native" runs everything there; "device" only the card's
-    inputs. See enc/encoder.encode for what raises NotImplementedError."""
+    inputs. See enc/encoder.encode for what raises NotImplementedError.
+
+    `dp` takes the place of the variables of the JAX package's device DP
+    (BROTLI_TPU_DP, BROTLI_TPU_RING_SCAN, ...): a
+    brotli_tpu_torch.DPConfig, None for the default v3 parse. Only the
+    card's route reads it."""
     if _on_start is not None:
         _on_start("compress", len(string))
     try:
         out = encode(bytes(string), quality=quality, lgwin=lgwin,
                      lgblock=lgblock, mode=mode, dictionary=dictionary,
                      large_window=large_window, base64_mode=base64_mode,
-                     encoder=encoder, device=device)
+                     encoder=encoder, device=device, dp=dp)
     except ValueError as e:
         raise error(str(e)) from e
     if _on_finish is not None:

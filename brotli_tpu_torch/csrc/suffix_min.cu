@@ -27,11 +27,15 @@
 //   4. M = cost + copyq[c] (int32 wrap), P = (c << 25) | dist, decoded
 //      from the key.
 // A block stages a tile of 64 positions' slots in shared memory with
-// coalesced loads (stride 33: conflict-free both ways). Then one warp
-// takes one position: lane s holds slot s and does a shared 64-bit
-// atomicMin into the warp's 64 buckets; lane l holds columns 2l, 2l+1
-// and runs a 5-step shuffle suffix scan; the warp stores the 512-byte
-// row as two 256-byte runs. Offsets into the (n, 2W) output are 64-bit.
+// coalesced loads (stride MAXS + 1: conflict-free both ways). Then one
+// warp takes one position: lane s holds slots s and s + 32 (the second
+// only above 32 slots: the 16-byte level makes 39) and does a shared
+// 64-bit atomicMin into the warp's 64 buckets; lane l holds columns 2l,
+// 2l+1 and runs a 5-step shuffle suffix scan; the warp stores the
+// 512-byte row as two 256-byte runs. Offsets into the (n, 2W) output are
+// 64-bit. The kernel is built for at most 32 slots and for at most 64;
+// the launch takes the smaller that fits (the wider one stages twice
+// the shared memory).
 
 #include <cuda_runtime.h>
 
@@ -41,8 +45,7 @@ constexpr int W = 64;
 constexpr int TILE = 64;       // positions per block
 constexpr int THREADS = 256;   // 8 warps, one position each at a time
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_SLOTS = 32;
-constexpr int STRIDE = MAX_SLOTS + 1;
+constexpr int MAX_SLOTS = 64;
 constexpr int INF = 1 << 28;
 constexpr int NO_EDGE = 1 << 29;
 constexpr int MASK25 = (1 << 25) - 1;
@@ -66,10 +69,12 @@ __device__ __forceinline__ int2 decode(long long k, int c, int cqc) {
                    (c << 25) | ((int)k & MASK25));
 }
 
+template <int MAXS>
 __global__ void __launch_bounds__(THREADS)
 suffix_min_kernel(const int* __restrict__ pd, const int* __restrict__ cs,
                   const int* __restrict__ cq, int* __restrict__ out,
                   int nslots, long long n) {
+  constexpr int STRIDE = MAXS + 1;
   __shared__ int spd[TILE * STRIDE];
   __shared__ int scs[TILE * STRIDE];
   __shared__ __align__(16) long long bucket[WARPS][W];
@@ -98,17 +103,21 @@ suffix_min_kernel(const int* __restrict__ pd, const int* __restrict__ cs,
     __syncwarp();
     long long dkey = NONE;
     int dlen = -1;
-    if (lane < nslots) {
-      const int v = spd[p * STRIDE + lane];
-      const int cost = scs[p * STRIDE + lane];
-      const int len = v >> 25;
-      if (cost < INF && len >= 2) {
-        const long long key = make_key(cost, lane, v);
-        if (lane == dslot) {
-          dkey = key;
-          dlen = len;
-        } else {
-          atomicMin(&bucket[warp][len], key);
+#pragma unroll
+    for (int h = 0; h < MAXS / 32; ++h) {
+      const int s = lane + 32 * h;
+      if (s < nslots) {
+        const int v = spd[p * STRIDE + s];
+        const int cost = scs[p * STRIDE + s];
+        const int len = v >> 25;
+        if (cost < INF && len >= 2) {
+          const long long key = make_key(cost, s, v);
+          if (s == dslot) {
+            dkey = key;
+            dlen = len;
+          } else {
+            atomicMin(&bucket[warp][len], key);
+          }
         }
       }
     }
@@ -128,8 +137,8 @@ suffix_min_kernel(const int* __restrict__ pd, const int* __restrict__ cs,
     long long k0 = kmin(b.x, k1);
     if (lane == 0) k0 = k1 = NONE;  // columns 0 and 1 take no slot
     // the dictionary slot relaxes only its exact length
-    const long long dk = __shfl_sync(FULL, dkey, dslot);
-    const int dl = __shfl_sync(FULL, dlen, dslot);
+    const long long dk = __shfl_sync(FULL, dkey, dslot & 31);
+    const int dl = __shfl_sync(FULL, dlen, dslot & 31);
     if (dl == c0) k0 = kmin(k0, dk);
     if (dl == c1) k1 = kmin(k1, dk);
     const int2 e0 = decode(k0, c0, cq0), e1 = decode(k1, c1, cq1);
@@ -147,7 +156,12 @@ extern "C" int btt_suffix_min(const int* pd, const int* cs, const int* cq,
                               cudaStream_t stream) {
   if (nslots < 2 || nslots > MAX_SLOTS || n <= 0) return -1;
   const long long blocks = (n + TILE - 1) / TILE;
-  suffix_min_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
-      pd, cs, cq, out, nslots, n);
+  if (nslots <= 32) {
+    suffix_min_kernel<32><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        pd, cs, cq, out, nslots, n);
+  } else {
+    suffix_min_kernel<MAX_SLOTS><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        pd, cs, cq, out, nslots, n);
+  }
   return (int)cudaGetLastError();
 }

@@ -43,7 +43,7 @@ def _sanitize_params(quality, lgwin, lgblock, large_window=False):
 def encode(data: bytes, quality: int = 11, lgwin: int = 22,
            lgblock: int = 0, mode: int = 0, dictionary=None,
            large_window: bool = False, base64_mode: bool = False, *,
-           encoder: str = "auto", device=None) -> bytes:
+           encoder: str = "auto", device=None, dp=None) -> bytes:
     """One-shot encode, routed by the JAX package's own conditions
     before any work (brotli_tpu.enc.encoder.encode), with `encoder` in
     place of its BROTLI_TPU_ENCODER:
@@ -57,6 +57,10 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
       with "native";
     - any other input in mode 0, 1 or 2 with no dictionary and no
       base64: the native one-shot encoder ("auto", "native").
+
+    `dp`: the device DP's ops.optimal.DPConfig (None = the default v3
+    parse), in place of the JAX package's BROTLI_TPU_DP and the other
+    variables of its DP; the native routes ignore it.
 
     A route never gives way to another after a failure. What only the
     JAX package's Python pipeline serves raises NotImplementedError:
@@ -93,7 +97,7 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
         arr = np.frombuffer(raw, dtype=np.uint8)
         out = _encode_q11_streamed(arr, n, C.max_backward_distance(lgwin),
                                    quality, lgblock, lgwin,
-                                   resolve(device))
+                                   resolve(device), dp)
         if len(out) >= n + 4:
             return _store_uncompressed(arr, lgwin)
         return out
@@ -110,7 +114,7 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
 
 
 def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
-                         device=None):
+                         device=None, dp=None):
     """Producer/consumer q11 encode: the device DP streams finished
     metablock spans into a serialization worker.
 
@@ -159,7 +163,7 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
 
     try:
         find_matches_optimal(arr, maxback, on_block=on_block,
-                             mb_size=1 << lgblock, device=device)
+                             mb_size=1 << lgblock, device=device, dp=dp)
     finally:
         q.put(None)
         t.join()

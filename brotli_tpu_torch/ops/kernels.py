@@ -23,12 +23,13 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 SOURCES = ("suffix_min", "dp_scan", "dp_backtrack", "chain_select",
-           "bitpack", "lz_resolve")
+           "bitpack", "lz_resolve", "dp_scan_v1", "dp_scan_ring")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 W = 64
 B = 4096
+MAX_SLOTS = 64      # suffix_min.cu's and dp_scan_v1.cu's most edge slots
 CHAIN_L = 4096      # chain_select.cu's chunk: n is a multiple of it
 CHAIN_S = 256       # its sub-chunk: the longest walk of one thread
 PACK_TILE = 4096    # bitpack.cu's fields per CTA
@@ -36,7 +37,8 @@ PACK_TABLE = 2 * (256 + 704 + 64)  # its code table: code and length of
                                    # the literal, command, distance trees
 
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
-            "chain_select": 0, "bitpack": 0, "lz_resolve": 0}
+            "chain_select": 0, "bitpack": 0, "lz_resolve": 0,
+            "dp_scan_v1": 0, "dp_scan_ring": 0}
 
 _libs = {}
 _lock = threading.Lock()
@@ -46,6 +48,9 @@ _SIGNATURES = {
     "btt_suffix_min": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                        _P],
     "btt_dp_scan": [_P, _P, _P, ctypes.c_int, _P],
+    "btt_dp_scan_v1": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "btt_dp_scan_ring": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                         ctypes.c_longlong, _P],
     "btt_dp_backtrack": [_P, _P, _P, ctypes.c_int, _P],
     "btt_chain_select": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                          _P],
@@ -140,7 +145,7 @@ def suffix_min(pd_flat, cs_flat, copyq):
     _check(copyq, "copyq", 1)
     nslots, n = pd_flat.shape
     if cs_flat.shape != pd_flat.shape or copyq.shape[0] < W or \
-            not 2 <= nslots <= 32:
+            not 2 <= nslots <= MAX_SLOTS:
         raise ValueError("suffix_min: bad shapes")
     out = torch.empty((n, 2 * W), dtype=torch.int32, device=pd_flat.device)
     _launch("suffix_min", "btt_suffix_min", pd_flat.device,
@@ -163,6 +168,59 @@ def dp_scan(mp, litq):
     _launch("dp_scan", "btt_dp_scan", mp.device, mp.data_ptr(),
             litq.data_ptr(), paymat.data_ptr(), nb)
     LAUNCHES["dp_scan"] += 1
+    return paymat
+
+
+def dp_scan_v1(pd_flat, cs_flat, litq, copyq):
+    """K7 on the card: (nslots, n) int32 slots, (n,) literal costs and
+    the copy costs (>= W,) -> int32 paymat (n // B, B + 1)."""
+    _check(pd_flat, "pd_flat", 2)
+    _check(cs_flat, "cs_flat", 2)
+    _check(litq, "litq", 1)
+    _check(copyq, "copyq", 1)
+    nslots, n = pd_flat.shape
+    if cs_flat.shape != pd_flat.shape or litq.shape[0] != n or n % B or \
+            not 0 < n < 1 << 31 or copyq.shape[0] < W or \
+            not 1 <= nslots <= MAX_SLOTS:
+        raise ValueError("dp_scan_v1: bad shapes")
+    nb = n // B
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32,
+                         device=pd_flat.device)
+    _launch("dp_scan_v1", "btt_dp_scan_v1", pd_flat.device,
+            pd_flat.data_ptr(), cs_flat.data_ptr(), litq.data_ptr(),
+            copyq.data_ptr(), paymat.data_ptr(), nslots, nb)
+    LAUNCHES["dp_scan_v1"] += 1
+    return paymat
+
+
+def dp_scan_ring(mp, litq, data, ring_init, ring_cost, copyq, icell, npos):
+    """K8 on the card: (n, 2W) rows of K1, (n,) literal costs, the
+    segment's uint8 bytes (n,), the entry ring of each block (nb,), the
+    ring code's cost (>= 1,), the copy costs (>= W,) and the
+    implicit-cell row (>= W,) or None -> int32 paymat (n // B, B + 1)."""
+    _check(mp, "mp", 2)
+    _check(litq, "litq", 1)
+    _check(data, "data", 1, torch.uint8)
+    _check(ring_init, "ring_init", 1)
+    _check(ring_cost, "ring_cost", 1)
+    _check(copyq, "copyq", 1)
+    if icell is not None:
+        _check(icell, "icell", 1)
+    n = mp.shape[0]
+    nb = n // B
+    if mp.shape[1] != 2 * W or n % B or not 0 < n < 1 << 31 or \
+            litq.shape[0] != n or data.shape[0] != n or \
+            ring_init.shape[0] != nb or ring_cost.shape[0] < 1 or \
+            copyq.shape[0] < W or (icell is not None and
+                                   icell.shape[0] < W):
+        raise ValueError("dp_scan_ring: bad shapes")
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=mp.device)
+    _launch("dp_scan_ring", "btt_dp_scan_ring", mp.device, mp.data_ptr(),
+            litq.data_ptr(), data.data_ptr(), ring_init.data_ptr(),
+            ring_cost.data_ptr(), copyq.data_ptr(),
+            None if icell is None else icell.data_ptr(),
+            paymat.data_ptr(), nb, int(npos))
+    LAUNCHES["dp_scan_ring"] += 1
     return paymat
 
 

@@ -1,20 +1,30 @@
 """Device optimal-parse DP (q10/q11), the PyTorch/CUDA counterpart of
-brotli_tpu.ops.optimal_jax's v3 pipeline.
+brotli_tpu.ops.optimal_jax.
 
-Per segment of the input (4 MiB by default, padded to a 2 or 4 MiB
-bucket) the device runs four stages:
+Two pipelines, chosen by `DPConfig.mode`:
+
+v3 (the default), per segment of the input (4 MiB by default, padded to
+a 2 or 4 MiB bucket):
 
   1. candidate edges by tiered sort-carry (`_edges_slots`): the k
-     nearest prior occurrences sharing a 4- or 8-byte prefix, their
-     capped match lengths, plus continuation edges inside the seed
-     parse's long matches and an atomic static-dictionary slot;
-  2. the suffix-min pre-reduction (K1, csrc/suffix_min.cu): the 29 edge
-     slots collapse into a dense per-position (cost, payload) row over
-     the W window columns;
+     nearest prior occurrences sharing a 4- or 8-byte prefix (and a
+     16-byte one with `level3`), their capped match lengths, plus
+     continuation edges inside the seed parse's long matches and an
+     atomic static-dictionary slot;
+  2. the suffix-min pre-reduction (K1, csrc/suffix_min.cu): the 29 (39
+     with `level3`) edge slots collapse into a dense per-position
+     (cost, payload) row over the W window columns;
   3. the wavefront scan (K3, csrc/dp_scan.cu): per DP block of B
      positions, 4096 dependent relaxation steps over a W-column window;
+     with `ring_scan`, K8 (csrc/dp_scan_ring.cu) instead, which also
+     carries the path's last distance and prices one edge at it a step;
   4. the backtrack (K4, csrc/dp_backtrack.cu) and a stable sort that
      compacts the chosen match starts.
+
+v1, per 2 MiB segment: the same edges without the dictionary slot, a
+literal cost from a (p1, byte) table, and the all-slots wavefront (K7,
+csrc/dp_scan_v1.cu), whose every step reduces all the slots itself;
+then K4 and the compaction.
 
 Every kernel has a plain PyTorch version here with the same contract;
 its wrapper runs the plain version for a tensor on the CPU and the
@@ -24,8 +34,10 @@ equal to the JAX package.
 
 The host side -- the native seed parse, cost tables, dictionary probe,
 segment prep, collect and span emission -- is copied from
-optimal_jax.py with its environment knobs fixed at their defaults.
+optimal_jax.py; its environment variables are the fields of DPConfig.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -44,6 +56,8 @@ from . import kernels
 
 HASH_MUL = 0x1E35A7BD
 HASH_MUL2 = 0x9E3779B1
+HASH_MUL3 = 0x85EBCA77
+HASH_MUL4 = 0xC2B2AE3D
 CAPD = 32         # candidate match-length cap (8 carried words)
 W = 64            # DP window: max edge length W-1
 B = 4096          # DP block size (hard parse boundary)
@@ -52,16 +66,13 @@ LEVELS = (
     (4, tuple(range(1, 13)) + (16,)),
     (8, tuple(range(1, 9)) + (16, 32, 64, 128, 256, 512)),
 )
-SEG_V3 = 1 << 22          # segment size
+# the 16-byte level that DPConfig.level3 adds
+LEVEL3 = (16, (1, 2, 3, 4, 8, 16, 32, 64, 128, 256))
+SEG_V3 = 1 << 22          # v3 segment size
 BUCKETS_V3 = [1 << 21, 1 << 22]
 CAPM_DIV = 8              # batched-collect match cap = bucket // 8
-
-# the JAX package's environment defaults, fixed
-COST_SAMPLE = 1 << 22     # BROTLI_TPU_COST_SAMPLE
-LIT_SURCHARGE = 1.1       # BROTLI_TPU_LIT_SURCHARGE
-INS_SCALE = 1.0           # BROTLI_TPU_INS_SCALE
-CMD_EXTRA = 1.0           # BROTLI_TPU_CMD_EXTRA
-SEED_Q = 9                # BROTLI_TPU_SEED_Q
+SEG = 1 << 21             # v1 segment size
+BUCKETS = [1 << 21]
 
 EDGE_INF = 1 << 28        # no edge in a slot (K1's INF)
 NO_EDGE = 1 << 29         # no edge reaches a window column
@@ -70,11 +81,73 @@ BIGD = 0x7FFFFFFF         # K1's "no payload" marker
 MASK25 = (1 << 25) - 1
 
 
-def _bucket_v3(n: int) -> int:
-    for b in BUCKETS_V3:
+@dataclasses.dataclass(frozen=True)
+class DPConfig:
+    """The DP's variant and its cost-model knobs. Each field takes the
+    place of one environment variable of the JAX package (which the port
+    never reads); the defaults are the port's default bytes.
+
+    mode           BROTLI_TPU_DP: "v3" (suffix-min pre-reduction, K1 +
+                   K3) or "v1" (the all-slots wavefront, K7)
+    ring_scan      BROTLI_TPU_RING_SCAN=1: v3 prices an edge at the
+                   path's last distance in the scan (K8 instead of K3)
+    icell          BROTLI_TPU_ICELL=1: that edge's price is also capped
+                   by the implicit-distance cell row (needs ring_scan)
+    level3         BROTLI_TPU_LEVEL3=1: a third, 16-byte candidate level
+    iterations     BROTLI_TPU_DP_ITERS: DP passes, each later one priced
+                   and seeded by the one before (v1 streaming runs one)
+    fast_first     BROTLI_TPU_FAST_FIRST: dispatch the first v3 segment
+                   from a seed parse of its own window (acts for v3 with
+                   one iteration on a stream's first bytes beyond one
+                   segment)
+    cost_sample    BROTLI_TPU_COST_SAMPLE: bytes of the seed parse the
+                   cost tables are counted on
+    lit_surcharge  BROTLI_TPU_LIT_SURCHARGE: literal cost factor
+    ins_scale      BROTLI_TPU_INS_SCALE: insert-length share factor
+    cmd_extra      BROTLI_TPU_CMD_EXTRA: factor of a command's base cost
+    seed_q         BROTLI_TPU_SEED_Q: quality of the native seed parse
+
+    A field that would change nothing raises ValueError, where the JAX
+    package ignores its variable: ring_scan or icell with v1, icell
+    without ring_scan, iterations below 1."""
+    mode: str = "v3"
+    ring_scan: bool = False
+    icell: bool = False
+    level3: bool = False
+    iterations: int = 1
+    fast_first: bool = True
+    cost_sample: int = 1 << 22
+    lit_surcharge: float = 1.1
+    ins_scale: float = 1.0
+    cmd_extra: float = 1.0
+    seed_q: int = 9
+
+    def __post_init__(self):
+        if self.mode not in ("v1", "v3"):
+            raise ValueError(f"DPConfig.mode must be 'v1' or 'v3', not "
+                             f"{self.mode!r}")
+        if self.mode == "v1" and (self.ring_scan or self.icell):
+            raise ValueError("DPConfig: ring_scan and icell are v3 only")
+        if self.icell and not self.ring_scan:
+            raise ValueError("DPConfig: icell prices the ring edge, which "
+                             "needs ring_scan")
+        if self.iterations < 1:
+            raise ValueError("DPConfig.iterations must be at least 1")
+
+    @property
+    def levels(self):
+        return LEVELS + (LEVEL3,) if self.level3 else LEVELS
+
+
+def _bucket_in(n: int, buckets) -> int:
+    for b in buckets:
         if n <= b:
             return b
-    return BUCKETS_V3[-1]
+    return buckets[-1]
+
+
+def _bucket_v3(n: int) -> int:
+    return _bucket_in(n, BUCKETS_V3)
 
 
 # ---------------------------------------------------------------------
@@ -142,10 +215,13 @@ def _level_candidates(w, pos, npos, max_distance, ranks, hval):
 
 
 def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
-                 seed_pos, seed_len, seed_dist):
-    """Per-slot edges: tiered sort-carry candidate levels + seed
-    continuation edges, flat (nslots, n) layout, block-boundary
-    clipped. Returns int32 (ls_flat, cs_flat, ds_flat, dist_fill)."""
+                 seed_pos, seed_len, seed_dist, levels=LEVELS):
+    """Per-slot edges shared by the v1 and v3 pipelines: tiered
+    sort-carry candidate `levels` + seed continuation edges, flat
+    (nslots, n) layout, block-boundary clipped. Returns int32 (ls_flat,
+    cs_flat, ds_flat, dist_fill), dist_fill the distance of the last
+    seed match starting at or before each position (the ring scan's
+    entry ring)."""
     n = data.shape[0]
     dev = data.device
     d = data.to(torch.int64)
@@ -156,12 +232,17 @@ def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
     w = [w0] + [torch.roll(w0, -4 * r) for r in range(1, CAPD // 4)]
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     cand = []
-    for plen, ranks in LEVELS:
+    for plen, ranks in levels:
         if plen == 4:
             hval = u32.shr(u32.mul(w[0], HASH_MUL), 15)
-        else:
+        elif plen == 8:
             hval = u32.shr(u32.mul(w[0], HASH_MUL) ^
                            u32.mul(w[1], HASH_MUL2), 15)
+        else:
+            hval = u32.shr(u32.mul(w[0], HASH_MUL) ^
+                           u32.mul(w[1], HASH_MUL2) ^
+                           u32.mul(w[2], HASH_MUL3) ^
+                           u32.mul(w[3], HASH_MUL4), 15)
         cand.extend(_level_candidates(
             w, pos, max(npos - (plen - 4), 0), max_distance, ranks, hval))
 
@@ -214,16 +295,17 @@ def _fill_last_positive(x):
 
 def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
                    dist_sym_bits_q, seed_pos, seed_len, seed_dist,
-                   dict_pos, dict_pay, seg_base):
-    """Stage 1 of a segment: the 29 edge slots (27 candidate ranks, the
-    atomic dictionary slot, the continuation slot) as int32 (29, n)
-    `pd_flat` (len<<25 | dist) and `cs_flat` (distance cost), and the
-    int32 (n,) per-position literal cost."""
+                   dict_pos, dict_pay, seg_base, levels=LEVELS):
+    """Stage 1 of a v3 segment: the 29 edge slots (27 candidate ranks,
+    the atomic dictionary slot, the continuation slot; 39 with the
+    16-byte level) as int32 (nslots, n) `pd_flat` (len<<25 | dist) and
+    `cs_flat` (distance cost), the int32 (n,) per-position literal cost
+    and the int32 (n,) `dist_fill` of `_edges_slots`."""
     n = data.shape[0]
     dev = data.device
-    ls_flat, cs_flat, ds_flat, _ = _edges_slots(
+    ls_flat, cs_flat, ds_flat, dist_fill = _edges_slots(
         data, npos, max_distance, dist_sym_bits_q, seed_pos, seed_len,
-        seed_dist)
+        seed_dist, levels)
     pd_flat = (ls_flat << 25) | torch.where(ls_flat >= 2, ds_flat, 0)
     # dict slot row (inserted before the continuation slot)
     pos = torch.arange(n, dtype=torch.int64, device=dev)
@@ -251,7 +333,25 @@ def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
     p2 = _shift_up(d, 2, 0)
     cid = ctx_tab[(p1 << 8) | p2].to(torch.int64)
     litq = (bits_tab[(cid << 8) | d] * 2).to(torch.int32)
-    return pd_flat, cs_flat, litq
+    return pd_flat, cs_flat, litq, dist_fill
+
+
+def edges_v1(data, npos, max_distance, litbits_q, dist_sym_bits_q,
+             seed_pos, seed_len, seed_dist, levels=LEVELS):
+    """The v1 edges (optimal_jax._edges_kernel): the 28 slots of
+    `_edges_slots` (38 with the 16-byte level; no dictionary slot) as
+    int32 (nslots, n) `pd_flat` (len<<25 | dist, dist 0 below length 2)
+    and `cs_flat`, and the int32 (n,) literal cost litbits_q[p1, byte]
+    from the (256*256,) table, p1 the previous byte (0 at position 0).
+    JAX emits the same values transposed to (B, nslots, nb)."""
+    ls_flat, cs_flat, ds_flat, _ = _edges_slots(
+        data, npos, max_distance, dist_sym_bits_q, seed_pos, seed_len,
+        seed_dist, levels)
+    pd_flat = (ls_flat << 25) | torch.where(ls_flat >= 2, ds_flat, 0)
+    d = data.to(torch.int64)
+    p1 = _shift_up(d, 1, 0)
+    litq = litbits_q[(p1 << 8) | d].to(torch.int32)
+    return pd_flat.contiguous(), cs_flat.contiguous(), litq
 
 
 # ---------------------------------------------------------------------
@@ -341,6 +441,141 @@ def dp_scan(mp, litq):
     return kernels.dp_scan(mp, litq)
 
 
+def dp_scan_v1_plain(pd_flat, cs_flat, litq, copyq):
+    """K7, plain version of optimal_jax._scan_kernel, the v1 wavefront:
+    (nslots, n) slots (pd = len<<25 | dist, cs = distance cost) and
+    (n,) literal costs, position-major; returns int32 paymat (nb, B+1)
+    as dp_scan_plain does. Per step, after the literal relax, every
+    slot relaxes every column c with 2 <= c <= len at cost_i + cs +
+    copyq[c]; minv[c] is the minimum over the slots (SCAN_INF when none
+    reaches c) and pay[c] the smallest (c << 25) | dist among the slots
+    that give it; then the strict-< merge and the shift."""
+    nslots, n = pd_flat.shape
+    nb = n // B
+    dev = pd_flat.device
+    pd = pd_flat.view(nslots, nb, B)
+    cs = cs_flat.view(nslots, nb, B)
+    lq = litq.view(nb, B)
+    col = torch.arange(W, dtype=torch.int32, device=dev)
+    cq = copyq[:W].to(torch.int32)
+    F = torch.full((nb, W), SCAN_INF, dtype=torch.int32, device=dev)
+    F[:, 0] = 0
+    P = torch.zeros((nb, W), dtype=torch.int32, device=dev)
+    inf_col = torch.full((nb, 1), SCAN_INF, dtype=torch.int32, device=dev)
+    zero_col = torch.zeros((nb, 1), dtype=torch.int32, device=dev)
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=dev)
+    for i in range(B):
+        cost_i = F[:, 0].clone()
+        paymat[:, i] = P[:, 0]
+        lv = cost_i + lq[:, i]
+        upd = lv < F[:, 1]
+        F[:, 1] = torch.where(upd, lv, F[:, 1])
+        P[:, 1] = torch.where(upd, 0, P[:, 1])
+        pdi = pd[:, :, i, None]
+        v = (cost_i[None, :] + cs[:, :, i])[:, :, None]
+        hit = (col <= (pdi >> 25)) & (col >= 2)
+        M = torch.where(hit, v + cq, SCAN_INF)
+        minv = M.min(0).values
+        pay = torch.where(M == minv[None], (col << 25) | (pdi & MASK25),
+                          BIGD).min(0).values
+        better = minv < F
+        F = torch.cat([torch.where(better, minv, F)[:, 1:], inf_col], 1)
+        P = torch.cat([torch.where(better, pay, P)[:, 1:], zero_col], 1)
+    paymat[:, B] = P[:, 0]
+    return paymat
+
+
+def dp_scan_v1(pd_flat, cs_flat, litq, copyq):
+    """K7: the plain version on the CPU, csrc/dp_scan_v1.cu on the
+    card."""
+    if pd_flat.device.type == "cpu":
+        return dp_scan_v1_plain(pd_flat, cs_flat, litq, copyq)
+    return kernels.dp_scan_v1(pd_flat, cs_flat, litq, copyq)
+
+
+def dp_scan_ring_plain(mp, litq, data, ring_init, ring_cost, copyq, icell,
+                       npos):
+    """K8, plain version of the path-ring branch of
+    optimal_jax._scan_math_v3: K3 (dp_scan_plain) plus R, the ring[0]
+    of the best path into each window column. Per step, after the
+    literal relax (whose column inherits R[0]): ring_i = R[0], and when
+    ring_i > 0 and src = pos - ring_i >= 0 the ring edge's length is the
+    count of equal leading bytes of the 16 at pos and at src (the
+    segment's bytes read cyclically, as jnp.roll builds them), capped
+    at the block end and at npos + 3 - pos; it prices columns 2..len at
+    cost_i + ring_cost + copyq[c], capped by the implicit-cell row
+    `icell` when given, else by EDGE_INF (strict <; P = c << 25 |
+    ring_i, R = ring_i). Then K1's rows merge as in K3 with R = PY &
+    MASK25, and the shift fills (SCAN_INF, 0, 0). R starts at
+    ring_init[block]; ring_cost is a (1,) tensor."""
+    n = mp.shape[0]
+    nb = n // B
+    dev = mp.device
+    mpv = mp.view(nb, B, 2 * W)
+    lq = litq.view(nb, B)
+    col = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    cap = icell[:W] if icell is not None else torch.full(
+        (W,), EDGE_INF, dtype=torch.int32, device=dev)
+    ring_w = torch.minimum(ring_cost[:1] + copyq[:W], cap)[None, :]
+    d = data.to(torch.int64)
+    w0 = (d | (torch.roll(d, -1) << 8) | (torch.roll(d, -2) << 16) |
+          (torch.roll(d, -3) << 24))
+    w_full = torch.stack([torch.roll(w0, -4 * k) for k in range(4)])
+    lane_base = torch.arange(nb, dtype=torch.int32, device=dev) * B
+    F = torch.full((nb, W), SCAN_INF, dtype=torch.int32, device=dev)
+    F[:, 0] = 0
+    P = torch.zeros((nb, W), dtype=torch.int32, device=dev)
+    R = ring_init.to(torch.int32)[:, None].repeat(1, W)
+    inf_col = torch.full((nb, 1), SCAN_INF, dtype=torch.int32, device=dev)
+    zero_col = torch.zeros((nb, 1), dtype=torch.int32, device=dev)
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=dev)
+    for i in range(B):
+        cost_i = F[:, 0].clone()
+        paymat[:, i] = P[:, 0]
+        lv = cost_i + lq[:, i]
+        upd = lv < F[:, 1]
+        F[:, 1] = torch.where(upd, lv, F[:, 1])
+        P[:, 1] = torch.where(upd, 0, P[:, 1])
+        ring_i = R[:, 0].clone()
+        R[:, 1] = torch.where(upd, ring_i, R[:, 1])
+        pos = lane_base + i
+        src = pos - ring_i
+        alive = (ring_i > 0) & (src >= 0)
+        srcc = torch.clamp(src, 0, n - 1).long()
+        rl = torch.zeros(nb, dtype=torch.int64, device=dev)
+        for k in range(4):
+            x = w_full[k, pos.long()] ^ w_full[k, srcc]
+            rl = rl + torch.where(alive, _tz_bytes_u32(x), 0)
+            alive = alive & (x == 0)
+        rl = torch.minimum(rl, torch.full_like(rl, B - i))
+        rl = torch.minimum(rl, torch.clamp(npos + 3 - pos, min=0))[:, None]
+        rv = torch.where((col >= 2) & (col <= rl), cost_i[:, None] + ring_w,
+                         SCAN_INF)
+        rbet = rv < F
+        F = torch.where(rbet, rv, F)
+        P = torch.where(rbet, (col << 25) | ring_i[:, None], P)
+        R = torch.where(rbet, ring_i[:, None], R)
+        py = mpv[:, i, W:]
+        minv = cost_i[:, None] + mpv[:, i, :W]
+        better = minv < F
+        F = torch.cat([torch.where(better, minv, F)[:, 1:], inf_col], 1)
+        P = torch.cat([torch.where(better, py, P)[:, 1:], zero_col], 1)
+        R = torch.cat([torch.where(better, py & MASK25, R)[:, 1:],
+                       zero_col], 1)
+    paymat[:, B] = P[:, 0]
+    return paymat
+
+
+def dp_scan_ring(mp, litq, data, ring_init, ring_cost, copyq, icell, npos):
+    """K8: the plain version on the CPU, csrc/dp_scan_ring.cu on the
+    card."""
+    if mp.device.type == "cpu":
+        return dp_scan_ring_plain(mp, litq, data, ring_init, ring_cost,
+                                  copyq, icell, npos)
+    return kernels.dp_scan_ring(mp, litq, data, ring_init, ring_cost,
+                                copyq, icell, npos)
+
+
 def dp_backtrack_plain(paymat):
     """K4, plain version of the backtrack of optimal_jax._finish_math:
     walk each block from B over exactly B steps (the step is 0 at
@@ -391,20 +626,32 @@ def compact(gsrc, vals, npos):
 
 def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
                   dist_sym_bits_q, seed_pos, seed_len, seed_dist,
-                  dict_pos, dict_pay, seg_base, *, capm):
+                  dict_pos, dict_pay, seg_base, *, capm, cfg=DPConfig(),
+                  icell_q=None):
     """One segment's optimal parse (counterpart of
-    optimal_jax._dp_v3_impl): edges -> K1 -> K3 -> K4 -> compaction.
+    optimal_jax._dp_v3_impl): edges -> K1 -> K3 (K8 with
+    cfg.ring_scan, its edge capped by the implicit-cell row `icell_q`
+    with cfg.icell) -> K4 -> compaction.
 
     Returns (packed, stacked): packed is int64 (2, capm + 8) holding
     uint32 values, with the match count at [0, 0] and matches at
     [:, 8 : 8 + capm]; stacked is the uncapped (2, n//2) compaction,
     fetched only on overflow."""
-    pd_flat, cs_flat, litq = segment_tables(
+    pd_flat, cs_flat, litq, dist_fill = segment_tables(
         data, npos, max_distance, bits_tab, ctx_tab, dist_sym_bits_q,
-        seed_pos, seed_len, seed_dist, dict_pos, dict_pay, seg_base)
+        seed_pos, seed_len, seed_dist, dict_pos, dict_pay, seg_base,
+        cfg.levels)
     mp = suffix_min(pd_flat, cs_flat, copyq)
     del pd_flat, cs_flat
-    paymat = dp_scan(mp, litq)
+    if cfg.ring_scan:
+        # the seed ring at every block start (blocks are hard parse
+        # boundaries, so the entry ring is unknowable)
+        ring_init = dist_fill.view(-1, B)[:, 0].contiguous()
+        paymat = dp_scan_ring(mp, litq, data, ring_init,
+                              dist_sym_bits_q[:1], copyq,
+                              icell_q if cfg.icell else None, npos)
+    else:
+        paymat = dp_scan(mp, litq)
     del mp
     gsrc, vals = dp_backtrack(paymat)
     count, stacked = compact(gsrc, vals, npos)
@@ -413,6 +660,22 @@ def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
     packed[0, 0] = count
     packed[:, 8:8 + capm] = stacked[:, :capm]
     return packed, stacked
+
+
+def dp_v1_segment(data, npos, max_distance, litbits_q, copyq,
+                  dist_sym_bits_q, seed_pos, seed_len, seed_dist, *,
+                  levels=LEVELS):
+    """One v1 segment's optimal parse (counterpart of
+    optimal_jax.dp_parse_block): edges_v1 -> K7 -> K4 -> compaction.
+    Returns (count, stacked), stacked the uncapped int64 (2, n//2)
+    compaction holding uint32 values."""
+    pd_flat, cs_flat, litq = edges_v1(
+        data, npos, max_distance, litbits_q, dist_sym_bits_q, seed_pos,
+        seed_len, seed_dist, levels)
+    paymat = dp_scan_v1(pd_flat, cs_flat, litq, copyq)
+    del pd_flat, cs_flat
+    gsrc, vals = dp_backtrack(paymat)
+    return compact(gsrc, vals, npos)
 
 
 # ---------------------------------------------------------------------
@@ -500,9 +763,9 @@ def upload_input(arr, n, device):
 
 
 def device_tables(tables, device):
-    """The cost tables as device tensors: (bits_tab, ctx_tab, copyq,
+    """The v3 cost tables as device tensors: (bits_tab, ctx_tab, copyq,
     dist_sym_bits_q)."""
-    bits_tab, copyq, distq, ctx_tab = tables
+    bits_tab, copyq, distq, ctx_tab = tables[:4]
     return (torch.from_numpy(bits_tab.astype(np.int32).reshape(-1)).to(
                 device),
             torch.from_numpy(ctx_tab.astype(np.int32)).to(device),
@@ -521,7 +784,7 @@ def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device):
         torch.from_numpy(a.astype(np.int64)).to(device) for a in rest)
 
 
-def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big,
+def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
                  base=0, dict_g=None, lo_start=0):
     """Run every segment's DP from `lo_start` (device work is queued
     asynchronously; nothing waits for it here; each segment records an
@@ -531,6 +794,8 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big,
     _dict_probe_global result."""
     dev = dev_big.device
     bits_tab, ctx_tab, copyq, distq = device_tables(tables, dev)
+    icell_q = torch.from_numpy(tables[4].astype(np.int32)).to(dev) \
+        if cfg.icell else None
     if dict_g is None:
         dict_g = _dict_probe_global(arr, seeds_list, base, max_distance)
     handles = []
@@ -544,10 +809,82 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big,
             packed, full = dp_v3_segment(
                 _slice_seg(dev_big, lo, b), npos, max_distance, bits_tab,
                 ctx_tab, copyq, distq, spos, slen, sdist, dloc, dval,
-                lo + base, capm=capm)
+                lo + base, capm=capm, cfg=cfg, icell_q=icell_q)
         handles.append((lo, capm, packed, full, fetch.mark(dev)))
     dpos_g, _, dwlen_g = dict_g
     return handles, (dpos_g.astype(np.int64), dwlen_g)
+
+
+def _dispatch_v1(arr, n, max_distance, tables, seeds_list, cfg, dev):
+    """Queue every v1 segment's DP (SEG bytes each, padded to its
+    bucket) without waiting for the card. Returns (lo, count, stacked,
+    event) handles."""
+    litbits, copyq, distq = (
+        torch.from_numpy(np.ascontiguousarray(t, np.int32).reshape(-1)).to(
+            dev) for t in tables)
+    handles = []
+    for lo in range(0, n, SEG):
+        hi = min(lo + SEG, n)
+        padded = np.zeros(_bucket_in(hi - lo, BUCKETS), np.uint8)
+        padded[:hi - lo] = arr[lo:hi]
+        seg_edges = _seg_seed_edges(seeds_list, lo, hi, SEG // 32)
+        with trace.stage("dp.dispatch"):
+            count, out = dp_v1_segment(
+                torch.from_numpy(padded).to(dev), max(hi - lo - 3, 0),
+                max_distance, litbits, copyq, distq,
+                *(torch.from_numpy(a.astype(np.int64)).to(dev)
+                  for a in seg_edges), levels=cfg.levels)
+        handles.append((lo, count, out, fetch.mark(dev)))
+    return handles
+
+
+def _collect_segment(lo, count, out, ev):
+    """Read back one v1 segment's compacted matches: the count, then
+    2^ceil(log2 count) entries (at least 1,024)."""
+    cnt = int(fetch.fetch_after([ev], [count.reshape(1)])[0])
+    z = np.zeros(0, np.int64)
+    if cnt == 0:
+        return z, z, z
+    k = min(1 << max(int(np.ceil(np.log2(cnt))), 10), out.shape[1])
+    host = _to_u32([ev], [out[:, :k]])[0]
+    pay = host[1, :cnt]
+    return (host[0, :cnt].astype(np.int64) + lo,
+            (pay >> 25).astype(np.int64),
+            (pay & np.uint32(MASK25)).astype(np.int64))
+
+
+def _stream_blocks(arr, handles, n, mb_size, max_distance, base,
+                   on_block):
+    """v1 streaming: collect segments in order, emitting each finished
+    metablock span to `on_block` while later segments compute on the
+    card. Matches crossing a span boundary split here; the dictionary
+    post-pass runs per span."""
+    z = np.zeros(0, np.int64)
+    pm, pl, pd = z, z, z    # pending matches (coalesced)
+    emitted = 0
+    for lo, count, out, ev in handles:
+        mm, ml, md = _collect_segment(lo, count, out, ev)
+        covered = min(lo + SEG, n)
+        if len(mm):
+            pm, pl, pd, _ = bridge_matches(arr, *_coalesce(
+                np.concatenate([pm, mm]), np.concatenate([pl, ml]),
+                np.concatenate([pd, md]), np.zeros(len(pm) + len(mm),
+                                                   np.int64)))
+        while emitted < n:
+            mb_hi = min(emitted + mb_size, n)
+            if covered < mb_hi:
+                break
+            pm, pl, pd, _ = split_matches_at(
+                pm, pl, pd, np.zeros(len(pm), np.int64), [mb_hi, n + 1])
+            take = pm < mb_hi
+            bm, bl, bd = pm[take], pl[take], pd[take]
+            pm, pl, pd = pm[~take], pl[~take], pd[~take]
+            with trace.stage("dp.dict-post"):
+                bm, bl, bd, bf = add_dictionary_matches(
+                    arr[:mb_hi], bm, bl, bd, np.zeros(len(bm), np.int64),
+                    max_distance, base, active_from=emitted)
+            on_block(emitted, mb_hi, (bm, bl, bd, bf))
+            emitted = mb_hi
 
 
 def _to_u32(events, tensors):
@@ -621,21 +958,28 @@ def _ctx_tab2() -> np.ndarray:
     return _CTX_TAB2
 
 
-def _cost_tables(data: np.ndarray, seed):
-    """Host-side cost tables from the seed parse (the lit_table=True
-    branch of optimal_jax._cost_tables): the quantized (64, 256)
-    context-model literal bits, the per-length copy cost, the 64
-    distance-symbol costs and the (256*256,) p1p2 -> context lookup."""
+def _cost_tables(data: np.ndarray, seed, *, lit_table: bool,
+                 cfg: DPConfig):
+    """Host-side cost tables from the seed parse (optimal_jax._cost_tables
+    without exact_lit), with cfg's cost knobs.
+
+    lit_table (v3): the quantized (64, 256) context-model literal bits,
+    the per-length copy cost, the 64 distance-symbol costs, the
+    (256*256,) p1p2 -> context lookup and the W-entry implicit-cell
+    row (the ring edge's cap with cfg.icell). Otherwise (v1): the int32
+    (256, 256) [p1, byte] literal cost with p2 marginalized out, the
+    copy cost and the distance-symbol costs."""
     m, lens, dists, flags = seed
     n = len(data)
+    cap = cfg.cost_sample
     # table statistics come from a bounded sample of the seed parse;
     # replay keeps whole matches only, literal coverage clips instead
-    if n > COST_SAMPLE:
-        _k = (m + lens) <= COST_SAMPLE
+    if n > cap:
+        _k = (m + lens) <= cap
         sm, sl = m[_k], lens[_k]
         sd, sf = dists[_k], flags[_k]
-        cm_, cl_ = m[m < COST_SAMPLE], lens[m < COST_SAMPLE]
-        sdata, sn = data[:COST_SAMPLE], COST_SAMPLE
+        cm_, cl_ = m[m < cap], lens[m < cap]
+        sdata, sn = data[:cap], cap
     else:
         sm, sl, sd, sf = m, lens, dists, flags
         cm_, cl_ = m, lens
@@ -660,6 +1004,7 @@ def _cost_tables(data: np.ndarray, seed):
     cc_hist = np.bincount(ccode, minlength=24).astype(np.float64) + 0.2
     cc_p = cc_hist / cc_hist.sum()
     ins_share = 3.0
+    jh = None
     if len(sm) > 16:
         prev_end = np.concatenate([[0], (sm + sl)[:-1]])
         ins_lens = np.maximum(sm - prev_end, 0)
@@ -671,7 +1016,7 @@ def _cost_tables(data: np.ndarray, seed):
         jp = jh / jh.sum()
         joint_avg = float(-(jp[jh > 0] * np.log2(jp[jh > 0])).sum())
         copy_avg = float(-(cc_p * np.log2(cc_p)).sum())
-        ins_share = max(joint_avg - copy_avg, 0.5) * INS_SCALE
+        ins_share = max(joint_avg - copy_avg, 0.5) * cfg.ins_scale
     cc_bits = -np.log2(cc_p) + ins_share
 
     def copy_cost_q(ls):
@@ -690,27 +1035,70 @@ def _cost_tables(data: np.ndarray, seed):
         dh = np.zeros(64, np.float64)
     dh += 0.2
     dist_sym_bits = -np.log2(dh / dh.sum())
-    litbits_q = np.clip(np.round(bits * LIT_SURCHARGE * QB / 2), 0,
-                        255).astype(np.uint8)  # (64, 256)
+    sur = cfg.lit_surcharge
+    if lit_table:
+        litbits_q = np.clip(np.round(bits * sur * QB / 2), 0,
+                            255).astype(np.uint8)  # (64, 256)
+    else:
+        # marginalize p2 exactly: ctx = lut0[p1] | lut1[p2], and lut1
+        # takes only a handful of values -- weight each by
+        # P(lut1[p2] | p1) over adjacent byte pairs of the first 4 MiB.
+        # A p1 value absent from the sample gets uniform weights (all
+        # zero would price its literals at 0)
+        samp = data[:1 << 22]
+        l1v = lut[1][samp[:-1].astype(np.int64)]  # lut1 of p2 w/ p1
+        p1v = samp[1:].astype(np.int64)
+        vals = np.unique(lut[1])
+        wt = np.zeros((256, len(vals)), np.float64)
+        for j, v in enumerate(vals):
+            wt[:, j] = np.bincount(p1v[l1v == v], minlength=256)
+        unseen = wt.sum(axis=1) == 0
+        wt[unseen] = 1.0
+        wt /= np.maximum(wt.sum(axis=1, keepdims=True), 1)
+        tab = np.zeros((256, 256), np.float64)
+        l0 = lut[0][np.arange(256)].astype(np.int64)
+        for j, v in enumerate(vals):
+            tab += wt[:, j:j + 1] * bits[l0 | v]
+        litbits_q = np.minimum(tab * sur * QB, 24 * QB).astype(np.int32)
     lens_all = np.arange(W)
     copyq = (copy_cost_q(np.maximum(lens_all, 2)) +
-             int(CMD_EXTRA * CMD_BASE_Q)).astype(np.int32)
+             int(cfg.cmd_extra * CMD_BASE_Q)).astype(np.int32)
     copyq[:2] = 1 << 28
     dist_sym_bits_q = (dist_sym_bits * QB).astype(np.int32)
-    return litbits_q, copyq, dist_sym_bits_q, _ctx_tab2()
+    if not lit_table:
+        return litbits_q, copyq, dist_sym_bits_q
+    # implicit-distance cell priced by landed length: a command whose
+    # distance rides the joint cell pays no distance symbol
+    icell_q = np.full(W, 1 << 28, np.int32)
+    lc_all = np.searchsorted(prefix.COPY_BASE, np.maximum(lens_all, 2),
+                             side="right") - 1
+    if jh is not None and jh.sum() > 16:
+        jtot = jh.sum()
+        for c in range(W):
+            cc = int(lc_all[c])
+            if cc > 15:
+                continue
+            f = 0.2 + sum(jh[(64 if cc >= 8 else 0) + (ic << 3) + (cc & 7)]
+                          for ic in range(8))
+            icell_q[c] = int((-np.log2(f / jtot) +
+                              prefix.COPY_EXTRA[cc]) * QB)
+    else:
+        icell_q = (copyq + dist_sym_bits_q[0]).astype(np.int32)
+    icell_q[:2] = 1 << 28
+    return litbits_q, copyq, dist_sym_bits_q, _ctx_tab2(), icell_q
 
 
 def _seed_parse(arr: np.ndarray, max_distance: int, base: int,
-                device=None):
-    """Greedy/lazy seed parse for the DP. The native C matcher (q9)
-    when the input starts the stream (base == 0) and the window is a
-    standard lgwin (maxback == 2^lgwin - 16); the device matcher at q5
-    on `device` otherwise, as the JAX package does."""
+                device=None, seed_q: int = DPConfig.seed_q):
+    """Greedy/lazy seed parse for the DP. The native C matcher at
+    `seed_q` when the input starts the stream (base == 0) and the
+    window is a standard lgwin (maxback == 2^lgwin - 16); the device
+    matcher at q5 on `device` otherwise, as the JAX package does."""
     lgwin = int(max_distance + 16).bit_length() - 1
     if (base == 0 and 10 <= lgwin <= 24 and
             C.max_backward_distance(lgwin) == max_distance):
         p, l, d = native.find_matches(np.ascontiguousarray(arr).tobytes(),
-                                      SEED_Q, lgwin)
+                                      seed_q, lgwin)
         z = np.zeros(len(p), np.int64)
         return (p.astype(np.int64), l.astype(np.int64), d.astype(np.int64),
                 z)
@@ -721,77 +1109,109 @@ def _seed_parse(arr: np.ndarray, max_distance: int, base: int,
 
 def find_matches_optimal(data: np.ndarray, max_distance: int,
                          base: int = 0, on_block=None, mb_size=None,
-                         device=None):
+                         device=None, *, dp=None):
     """Device q10/q11 parse: native seed -> host cost tables -> device
-    DP per segment -> coalesce + dictionary post-pass.
+    DP per segment -> coalesce + dictionary post-pass. `dp`: the
+    DPConfig (None = DPConfig()); with iterations > 1, each later pass
+    prices with tables from the pass before and seeds with it too.
 
-    The first segment is dispatched early from a seed parse local to
-    its window, so the full-input seed and dictionary probe run while
-    the card works on it.
+    v3 with one iteration dispatches the first segment early from a
+    seed parse local to its window (cfg.fast_first), so the full-input
+    seed and dictionary probe run while the card works on it.
 
     Streaming mode: with `on_block(mb_lo, mb_hi, matches)` set (and
     `mb_size`), finished metablock spans are emitted as soon as their
-    segments are collected. Returns None in that mode, else the
-    (pos, len, dist, flag) int64 match arrays."""
+    segments are collected (v1 then runs one iteration). Returns None
+    in that mode, else the (pos, len, dist, flag) int64 match
+    arrays."""
+    cfg = DPConfig() if dp is None else dp
     dev = resolve(device)
     n = len(data)
     arr = np.asarray(data)
-    dev_big = upload_input(arr, n, dev)
+    v3 = cfg.mode == "v3"
+    iterations = 1 if on_block is not None and not v3 else cfg.iterations
+    dev_big = upload_input(arr, n, dev) if v3 else None
     handles0 = None
-    if n > SEG_V3 and base == 0:
+    if (v3 and cfg.fast_first and n > SEG_V3 and base == 0 and
+            iterations == 1):
         with trace.stage("dp.seed1"):
-            seed1 = _seed_parse(arr[:SEG_V3], max_distance, base, dev)
+            seed1 = _seed_parse(arr[:SEG_V3], max_distance, base, dev,
+                                cfg.seed_q)
         with trace.stage("dp.cost-tables1"):
-            tables1 = _cost_tables(arr[:SEG_V3], seed1)
+            tables1 = _cost_tables(arr[:SEG_V3], seed1, lit_table=True,
+                                   cfg=cfg)
         dict1 = _dict_probe_global(arr[:SEG_V3], [seed1], base,
                                    max_distance)
         with trace.stage("dp.device"):
             handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance,
-                                       tables1, [seed1], dev_big, base,
-                                       dict_g=dict1)
+                                       tables1, [seed1], dev_big, cfg,
+                                       base, dict_g=dict1)
     with trace.stage("dp.seed"):
-        seed = _seed_parse(arr, max_distance, base, dev)
-    with trace.stage("dp.cost-tables"):
-        tables = _cost_tables(arr, seed)
-    with trace.stage("dp.device"):
-        handles, dict_table = _dispatch_v3(
-            arr, n, max_distance, tables, [seed], dev_big, base,
-            lo_start=SEG_V3 if handles0 else 0)
-        if handles0:
-            # merge segment 1 (dispatched early) + its dict probe's
-            # edges (flag recovery at collect needs every position
-            # either probe selected)
-            handles = handles0 + handles
-            dp0, _, dw0 = dict1
-            dpos_g, dwlen_g = dict_table
-            mp = np.concatenate([dp0.astype(np.int64), dpos_g])
-            mw = np.concatenate([dw0, dwlen_g])
-            order = np.argsort(mp, kind="stable")
-            mp, mw = mp[order], mw[order]
-            if len(mp):
-                keep = np.concatenate([[True], np.diff(mp) != 0])
-                mp, mw = mp[keep], mw[keep]
-            dict_table = (mp, mw)
-        if on_block is not None and SEG_V3 % mb_size == 0:
-            # stream: emit the first half's spans while the card
-            # computes the rest. Groups cover whole metablocks only
-            # when mb_size divides SEG_V3; otherwise fall through to
-            # the full collect + one _emit_spans(0, n) below
-            _stream_v3(arr, handles, dict_table, n, mb_size,
-                       max_distance, base, on_block)
-            return None
-        all_m, all_l, all_d, all_f = _collect_v3(
-            handles, dict_table, max_distance, base)
-    if not all_m:
-        z = np.zeros(0, np.int64)
-        if on_block is not None:
-            _emit_spans(arr, z, z, z, z, n, mb_size, max_distance, base,
-                        on_block)
-            return None
-        return z, z, z, z
-    m, lens, dists, flags = bridge_matches(arr, *_coalesce(
-        np.concatenate(all_m), np.concatenate(all_l),
-        np.concatenate(all_d), np.concatenate(all_f)))
+        seed = _seed_parse(arr, max_distance, base, dev, cfg.seed_q)
+    m = lens = dists = flags = None
+    for it in range(iterations):
+        prev = seed if it == 0 else (m, lens, dists, flags)
+        with trace.stage("dp.cost-tables"):
+            tables = _cost_tables(arr, prev, lit_table=v3, cfg=cfg)
+        seeds_list = [seed] if it == 0 else [seed, prev]
+        with trace.stage("dp.device"):
+            if v3:
+                early = handles0 is not None and it == 0
+                handles, dict_table = _dispatch_v3(
+                    arr, n, max_distance, tables, seeds_list, dev_big,
+                    cfg, base, lo_start=SEG_V3 if early else 0)
+                if early:
+                    # merge segment 1 (dispatched early) + its dict
+                    # probe's edges (flag recovery at collect needs
+                    # every position either probe selected)
+                    handles = handles0 + handles
+                    dp0, _, dw0 = dict1
+                    dpos_g, dwlen_g = dict_table
+                    mp = np.concatenate([dp0.astype(np.int64), dpos_g])
+                    mw = np.concatenate([dw0, dwlen_g])
+                    order = np.argsort(mp, kind="stable")
+                    mp, mw = mp[order], mw[order]
+                    if len(mp):
+                        keep = np.concatenate([[True], np.diff(mp) != 0])
+                        mp, mw = mp[keep], mw[keep]
+                    dict_table = (mp, mw)
+                if (on_block is not None and it == iterations - 1 and
+                        SEG_V3 % mb_size == 0):
+                    # stream: emit the first half's spans while the card
+                    # computes the rest. Groups cover whole metablocks
+                    # only when mb_size divides SEG_V3; otherwise fall
+                    # through to the full collect + one _emit_spans(0, n)
+                    _stream_v3(arr, handles, dict_table, n, mb_size,
+                               max_distance, base, on_block)
+                    return None
+                all_m, all_l, all_d, all_f = _collect_v3(
+                    handles, dict_table, max_distance, base)
+            else:
+                handles = _dispatch_v1(arr, n, max_distance, tables,
+                                       seeds_list, cfg, dev)
+                if on_block is not None:
+                    _stream_blocks(arr, handles, n, mb_size, max_distance,
+                                   base, on_block)
+                    return None
+                all_m, all_l, all_d, all_f = [], [], [], []
+                with trace.stage("dp.fetch"):
+                    for h in handles:
+                        mm, ml, md = _collect_segment(*h)
+                        if len(mm):
+                            all_m.append(mm)
+                            all_l.append(ml)
+                            all_d.append(md)
+                            all_f.append(np.zeros(len(mm), np.int64))
+        if not all_m:
+            z = np.zeros(0, np.int64)
+            if on_block is not None:
+                _emit_spans(arr, z, z, z, z, n, mb_size, max_distance,
+                            base, on_block)
+                return None
+            return z, z, z, z
+        m, lens, dists, flags = bridge_matches(arr, *_coalesce(
+            np.concatenate(all_m), np.concatenate(all_l),
+            np.concatenate(all_d), np.concatenate(all_f)))
     if on_block is not None:
         _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
                     base, on_block)

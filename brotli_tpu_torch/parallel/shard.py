@@ -32,7 +32,7 @@ from .device_serialize import serialize_shard_device
 def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
                      n_shards: int = None, use_device: bool = True,
                      gather: str = "host", serializer: str = "native",
-                     device=None) -> bytes:
+                     device=None, *, dp=None) -> bytes:
     """Compress with `n_shards` shards on `device` (None = "cuda";
     "cpu" runs the plain PyTorch versions of the kernels); returns a
     single RFC 7932 stream. `n_shards=None` means one shard per CUDA
@@ -41,6 +41,11 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     `serializer`: "native" runs the native serializer per shard on host
     threads; "device" plans the symbol stream and packs the payload bits
     on the card (trivial single-tree metablocks, slightly larger).
+
+    `dp`: the ops.optimal.DPConfig of the DP that parses each shard at
+    q >= 10 (None = the default v3), in place of the JAX package's
+    BROTLI_TPU_DP and the other variables of its DP; the JAX package
+    runs v1 off the TPU, which DPConfig(mode="v1") gives.
 
     An empty input, or one under n_shards * 64 KiB, is one stream of
     the port's one-shot encoder (enc/encoder.encode on `device`), as in
@@ -67,14 +72,14 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
         n_shards = max(torch.cuda.device_count(), 1) \
             if dev.type == "cuda" else 1
     if n == 0 or n < n_shards * (1 << 16):
-        return encode(raw, quality=quality, lgwin=lgwin, device=dev)
+        return encode(raw, quality=quality, lgwin=lgwin, device=dev, dp=dp)
 
     bounds = np.linspace(0, n, n_shards + 1).astype(np.int64)
     max_distance = C.max_backward_distance(lgwin)
 
     # Stage 1: match finding per shard on the card.
     shard_matches = _find_matches_sharded(arr, bounds, max_distance,
-                                          quality, dev)
+                                          quality, dev, dp)
 
     # split matches at metablock boundaries first: splitting can drop
     # tiny straddlers, and the ring derivation below must see exactly
@@ -118,7 +123,8 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     return b"".join(parts)
 
 
-def _find_matches_sharded(arr, bounds, max_distance, quality, device):
+def _find_matches_sharded(arr, bounds, max_distance, quality, device,
+                          dp=None):
     """Per-shard match finding, one shard after another on `device`.
     Match positions are shard-relative."""
     n_shards = len(bounds) - 1
@@ -131,7 +137,7 @@ def _find_matches_sharded(arr, bounds, max_distance, quality, device):
         shard = arr[lo:hi]
         if quality >= 10:
             out.append(find_matches_optimal(shard, max_distance, base=lo,
-                                            device=device))
+                                            device=device, dp=dp))
         else:
             out.append(find_matches_device(shard, max_distance, quality,
                                            base=lo, device=device))

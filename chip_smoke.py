@@ -42,7 +42,22 @@ Phases (any failure ends the run with a non-zero exit and no result):
      back-pressure, decompress_concatenated of phases 4 and 6's
      streams, a raw dictionary, a large window, and the CLI at q11 in a
      subprocess (the card's bytes) and back with -d;
- 12. print the kernels line (launches on each kernel's path, errors,
+ 12. the DP variants (ops/optimal.DPConfig): K7 (the v1 wavefront)
+     against its plain version on the real first 2 MiB v1 segment (28
+     and 38 slots) and on seeded cases (equal sums at different
+     distances, empty slots, length stubs, costs at and above 1 << 28
+     on live slots, edges to the block end; 28 and 38 slots), K8 (the
+     path-ring scan) on the real first 4 MiB v3 segment with the
+     implicit-cell row off and on and on seeded rings (into the
+     previous block, to the segment start and beyond it, npos cut mid
+     block, wrapped words at the segment end), K1 at the 39 slots of
+     the 16-byte level; compress(dp=v1) on the 16 MiB corpus three
+     times as in phase 4 (K7 and K4 once a 2 MiB segment, K1 and K3
+     never) and dp=ring_scan once (K8 once a 4 MiB segment, K3 never);
+     the same bytes on the card and the CPU for 512 KiB (v1, ring_scan,
+     ring_scan + icell); level3, iterations=2, fast_first=False and one
+     value of each cost knob on a 6 MiB prefix; v1 with two shards;
+ 13. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
@@ -258,6 +273,82 @@ def k6_case(nfields, seed, kind="seeded"):
                    rng.integers(0, 16, size).astype(np.int32)]
     # table order: lit code, lit len, cmd code, cmd len, dist code, len
     return vals, mk, tables, int(rng.integers(0, 8))
+
+
+def v1_case(kind, nslots, nb, seed, B=4096, W=64):
+    """Seeded K7 inputs (pd, cs, litq, copyq) over nb DP blocks, as in
+    tests/test_torch_dp_variants.py: "ties" (costs from three values and
+    distances from eight, so equal sums at different distances abound;
+    lengths over -64..63: stubs below 2 and negative pd), "empty" (every
+    length 0), "stubs" (lengths -3..1 at cheap costs), "expensive"
+    (costs at and above 1 << 28 on live slots, and near 2**31 so sums
+    wrap), "block end" (every slot 63 long, cut at each block's end)."""
+    rng = np.random.default_rng(seed)
+    n = nb * B
+    ls = rng.integers(-64, 64, (nslots, n)).astype(np.int64)
+    ds = rng.integers(1, 9, (nslots, n)) * 1000 + rng.integers(0, 2, (
+        nslots, n))
+    cs = rng.choice([300, 301, 420], (nslots, n))
+    if kind == "empty":
+        ls[:] = 0
+    elif kind == "stubs":
+        ls = rng.integers(-3, 2, (nslots, n))
+    elif kind == "expensive":
+        ls = rng.integers(2, 64, (nslots, n))
+        cs = rng.choice([1 << 28, (1 << 28) + 7, (1 << 31) - 5, 500],
+                        (nslots, n))
+    elif kind == "block end":
+        ls[:] = 63
+    ls = np.minimum(ls, B - np.arange(n) % B)
+    pd = ((ls << 25) | ds) & 0xFFFFFFFF
+    litq = rng.integers(20, 200, n).astype(np.int32)
+    copyq = rng.integers(0, 300, W).astype(np.int32)
+    copyq[:2] = 1 << 28
+    return (pd.astype(np.uint32).view(np.int32), cs.astype(np.int32), litq,
+            copyq)
+
+
+def ring_case(kind, nb, seed, B=4096, W=64):
+    """Seeded K8 inputs over nb DP blocks, as in
+    tests/test_torch_dp_variants.py: (mp, litq, data, ring_init,
+    ring_cost, copyq, icell, npos). Bytes repeat with a period of 2,000
+    plus 1% noise; K1's rows offer sparse edges at distances of the
+    period, into the previous block and beyond the segment start.
+    Kinds: "prev block" (entry rings 4,100..8,000), "to start" (block b
+    enters with ring b * B + k, k in -1, 0, 1: src before, at and after
+    the segment start), "npos cut" (npos ends half way into the last
+    block), "wrap" (the last block repeats the segment's head, so the
+    lanes at the end compare wrapped words)."""
+    rng = np.random.default_rng(seed)
+    n = nb * B
+    period = rng.integers(0, 256, 2000, dtype=np.uint8)
+    data = np.resize(period, n)
+    noise = rng.random(n) < 0.01
+    data[noise] = rng.integers(0, 256, int(noise.sum()))
+    if kind == "wrap":
+        data[-B:] = data[:B]
+    m = np.full((n, W), 1 << 29, np.int32)
+    py = np.zeros((n, W), np.int32)
+    live = rng.random((n, W)) < 0.02
+    live[:, :2] = False
+    m[live] = rng.integers(200, 900, int(live.sum()))
+    dist = rng.choice([2000, 4000, 4100, 6000, 9000], (n, W))
+    py[live] = ((np.arange(W)[None, :] << 25) | dist)[live]
+    mp = np.concatenate([m, py], axis=1)
+    litq = rng.integers(40, 120, n).astype(np.int32)
+    if kind == "prev block":
+        ring_init = rng.integers(4100, 8000, nb)
+    elif kind == "to start":
+        ring_init = np.arange(nb) * B + rng.integers(-1, 2, nb)
+    else:
+        ring_init = rng.choice([0, 2000, 4000], nb)
+    copyq = rng.integers(30, 200, W).astype(np.int32)
+    copyq[:2] = 1 << 28
+    icell = rng.integers(20, 300, W).astype(np.int32)
+    icell[:2] = 1 << 28
+    npos = n - B // 2 if kind == "npos cut" else n - 3
+    return (mp, litq, data, ring_init.astype(np.int32), 40, copyq, icell,
+            npos)
 
 
 def bound(nbytes, nops):
@@ -688,6 +779,226 @@ def public_surface(corpus, q11_out, q5_out, card):
                 sys.exit("chip_smoke: cli -d did not give the file back")
 
 
+def dp_variants(corpus, rows, dev, card):
+    """Phase 12: the DP variants (ops/optimal.DPConfig). K7 and K8
+    against their plain versions on the real first v1 and v3 segments
+    and on seeded extremes, K1 at 39 slots; v1 and the ring scan at full
+    width; cuda against cpu; the other variants on a prefix; v1 with
+    two shards. Returns the v1 and ring paths' launches."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch.format import constants as C
+    from brotli_tpu_torch.ops import kernels, optimal as OPT
+    from brotli_tpu_torch.parallel.shard import compress_sharded
+    from brotli_tpu_torch.utils import trace
+
+    DP = OPT.DPConfig
+    B, W = OPT.B, OPT.W
+    arr = np.frombuffer(corpus, np.uint8)
+    maxd = C.max_backward_distance(22)
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    print("[12] the DP variants", flush=True)
+
+    # -- K7 on the v1 path's first segment (the whole input's seed and
+    # cost tables, as find_matches_optimal builds them), 28 and 38 slots
+    seed = OPT._seed_parse(arr, maxd, 0)
+    lit, copyq1, distq1 = (t(np.asarray(a, np.int32).reshape(-1)) for a in
+                           OPT._cost_tables(arr, seed, lit_table=False,
+                                            cfg=DP(mode="v1")))
+    seg_seeds = [t(a.astype(np.int64)) for a in OPT._seg_seed_edges(
+        [seed], 0, OPT.SEG, OPT.SEG // 32)]
+    data1 = t(arr[:OPT.SEG])
+    errs = {}
+    for label, levels in (("real", OPT.LEVELS),
+                          ("real 38 slots", DP(level3=True).levels)):
+        pd, cs, litq = OPT.edges_v1(data1, OPT.SEG - 3, maxd, lit, distq1,
+                                    *seg_seeds, levels=levels)
+        errs[label] = max_abs_err(kernels.dp_scan_v1(pd, cs, litq, copyq1),
+                                  OPT.dp_scan_v1_plain(pd, cs, litq, copyq1))
+    n1, nb1 = OPT.SEG, OPT.SEG // B
+    for kind, ns, sd in (("ties", 28, 1), ("ties", 38, 2), ("empty", 28, 3),
+                         ("stubs", 28, 6), ("expensive", 28, 4),
+                         ("block end", 38, 5)):
+        case = [t(a) for a in v1_case(kind, ns, nb1, sd)]
+        errs[f"{kind} {ns}"] = max_abs_err(kernels.dp_scan_v1(*case),
+                                           OPT.dp_scan_v1_plain(*case))
+    del case
+    pd, cs, litq = OPT.edges_v1(data1, OPT.SEG - 3, maxd, lit, distq1,
+                                *seg_seeds)
+    pay1 = kernels.dp_scan_v1(pd, cs, litq, copyq1)
+    rows["K7"] = dict(
+        name="dp_scan_v1", route="cuda",
+        source="brotli_tpu_torch/csrc/dp_scan_v1.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:304",
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: kernels.dp_scan_v1(pd, cs, litq, copyq1), 10),
+        device_ms=cuda_ms(lambda: kernels.dp_scan_v1(pd, cs, litq, copyq1),
+                          10, queued=True),
+        plain_ms=cuda_ms(lambda: OPT.dp_scan_v1_plain(pd, cs, litq, copyq1),
+                         1),
+        # slots and literal costs read once, paymat written once; the
+        # work this data needs: a sum and a compare-select for each
+        # column a slot reaches, and the merge of every column
+        nbytes=(pd.numel() + cs.numel() + litq.numel() + copyq1.numel()
+                + pay1.numel()) * 4,
+        nops=2 * int(((pd >> 25) - 1).clamp(min=0).sum()) + n1 * W * 2)
+    print(f"[12] K7 dp_scan_v1 at n={n1}, {pd.shape[0]} slots: max_abs_err "
+          f"{errs}", flush=True)
+    del pd, cs, litq, pay1, data1, seg_seeds, lit
+    torch.cuda.empty_cache()
+
+    # -- K8 on the v3 path's first segment (its fast-first seed and
+    # tables), the implicit-cell row off and on; K1 at 39 slots
+    seg = arr[:OPT.SEG_V3]
+    b = OPT._bucket_v3(len(seg))
+    seed1 = OPT._seed_parse(seg, maxd, 0)
+    tables = OPT._cost_tables(seg, seed1, lit_table=True, cfg=DP())
+    dict_g = OPT._dict_probe_global(seg, [seed1], 0, maxd)
+    bits_tab, ctx_tab, copyq, distq = OPT.device_tables(tables, dev)
+    icell = t(tables[4].astype(np.int32))
+    npos, *rest = OPT.segment_inputs(arr, [seed1], dict_g, 0, len(seg), b,
+                                     dev)
+    data = OPT.upload_input(arr, len(arr), dev)[:b]
+    errs1 = {}
+    pd, cs, _, _ = OPT.segment_tables(data, npos, maxd, bits_tab, ctx_tab,
+                                      distq, *rest, 0,
+                                      DP(level3=True).levels)
+    errs1["real 39"] = max_abs_err(kernels.suffix_min(pd, cs, copyq),
+                                   OPT.suffix_min_plain(pd, cs, copyq))
+    del pd, cs
+    spd, scs, scq = (t(a) for a in k1_case(39, b, 39))
+    errs1["seeded 39"] = max_abs_err(kernels.suffix_min(spd, scs, scq),
+                                     OPT.suffix_min_plain(spd, scs, scq))
+    del spd, scs, scq
+    pd, cs, litq, dist_fill = OPT.segment_tables(
+        data, npos, maxd, bits_tab, ctx_tab, distq, *rest, 0)
+    mp = kernels.suffix_min(pd, cs, copyq)
+    del pd, cs
+    ring_init = dist_fill.view(-1, B)[:, 0].contiguous()
+    args8 = (mp, litq, data, ring_init, distq[:1], copyq)
+    errs = {}
+    for label, ic in (("real", None), ("real icell", icell)):
+        errs[label] = max_abs_err(
+            kernels.dp_scan_ring(*args8, ic, npos),
+            OPT.dp_scan_ring_plain(*args8, ic, npos))
+    nb3 = b // B
+    for kind, use_icell in (("prev block", False), ("to start", True),
+                            ("to start", False), ("npos cut", True),
+                            ("wrap", False)):
+        mp_s, lq_s, d_s, ri_s, rc_s, cq_s, ic_s, np_s = ring_case(kind, nb3, 7)
+        case = (t(mp_s), t(lq_s), t(d_s), t(ri_s),
+                torch.tensor([rc_s], dtype=torch.int32, device=dev), t(cq_s),
+                t(ic_s) if use_icell else None, np_s)
+        errs[f"{kind}{' icell' if use_icell else ''}"] = max_abs_err(
+            kernels.dp_scan_ring(*case), OPT.dp_scan_ring_plain(*case))
+    del case
+    pay8 = kernels.dp_scan_ring(*args8, None, npos)
+    rows["K8"] = dict(
+        name="dp_scan_ring", route="cuda",
+        source="brotli_tpu_torch/csrc/dp_scan_ring.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:414",
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: kernels.dp_scan_ring(*args8, None, npos), 10),
+        device_ms=cuda_ms(lambda: kernels.dp_scan_ring(*args8, None, npos),
+                          10, queued=True),
+        plain_ms=cuda_ms(lambda: OPT.dp_scan_ring_plain(*args8, None, npos),
+                         1),
+        # K1's rows, the literal costs, the segment's bytes and the entry
+        # rings read once, paymat written once; K3's merge per column
+        # plus the ring edge's 16-byte compare a position
+        nbytes=(mp.numel() + litq.numel() + ring_init.numel() + W
+                + pay8.numel()) * 4 + data.numel(),
+        nops=b * W * 4 + b * 16 * 2)
+    rows["K1"]["max_abs_err"] = max(rows["K1"]["max_abs_err"],
+                                    *errs1.values())
+    print(f"[12] K1 suffix_min at 39 slots: max_abs_err {errs1}; K8 "
+          f"dp_scan_ring at n={b}: max_abs_err {errs}", flush=True)
+    del mp, litq, data, args8, pay8, ring_init, icell
+    torch.cuda.empty_cache()
+    for k in ("K7", "K8"):
+        r = rows[k]
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
+        print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms one call (the "
+              f"card alone {r['device_ms']:.3f} ms), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) [{card}]", flush=True)
+    bad = [k for k in ("K1", "K7", "K8") if rows[k]["max_abs_err"] != 0]
+    if bad:
+        sys.exit(f"chip_smoke: kernels disagree with their plain versions: "
+                 f"{bad}")
+
+    # -- v1 and the ring scan at full width
+    print("[12] q11, api.compress(dp=DPConfig(mode='v1'))", flush=True)
+    v1 = DP(mode="v1")
+    launches_v1, _ = three_runs(
+        lambda: bt.compress(corpus, quality=11, dp=v1), trace, kernels,
+        "q11 v1", corpus, bt.decompress, card)
+    nseg1 = -(-len(corpus) // OPT.SEG)
+    if (launches_v1["dp_scan_v1"], launches_v1["dp_backtrack"],
+            launches_v1["suffix_min"], launches_v1["dp_scan"]) != \
+            (nseg1, nseg1, 0, 0):
+        sys.exit(f"chip_smoke: the v1 path launched {launches_v1}, not K7 "
+                 f"and K4 {nseg1} times each and K1, K3 never")
+    ring = DP(ring_scan=True)
+    kernels.reset_launches()
+    out, wall = timed(lambda: bt.compress(corpus, quality=11, dp=ring))
+    launches_ring = dict(kernels.LAUNCHES)
+    print(f"[12] q11 ring_scan: {len(corpus)} B -> {len(out)} B in {wall:.3f} "
+          f"s = {len(corpus) / wall / 1e6:.3f} MB/s [{card}]; launches "
+          f"{launches_ring}", flush=True)
+    nseg3 = -(-len(corpus) // OPT.SEG_V3)
+    if launches_ring["dp_scan_ring"] != nseg3 or launches_ring["dp_scan"]:
+        sys.exit(f"chip_smoke: the ring path launched {launches_ring}, not "
+                 f"K8 {nseg3} times and K3 never")
+    if bt.decompress(out) != corpus:
+        sys.exit("chip_smoke: the ring_scan stream does not decode back")
+
+    # -- the same bytes on the card and on the CPU
+    prefix = corpus[:512 << 10]
+    for label, cfg in (("v1", v1), ("ring_scan", ring),
+                       ("ring_scan + icell", DP(ring_scan=True, icell=True))):
+        on_card = bt.compress(prefix, quality=11, dp=cfg)
+        t0 = time.perf_counter()
+        on_cpu = bt.compress(prefix, quality=11, dp=cfg, device="cpu")
+        print(f"[12] {label}, 512 KiB prefix: cuda {len(on_card)} B, cpu "
+              f"{len(on_cpu)} B (cpu path {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if on_card != on_cpu or bt.decompress(on_card) != prefix:
+            sys.exit(f"chip_smoke: {label} cuda and cpu streams differ")
+
+    # -- the other variants on a prefix of two v3 segments (fast_first
+    # acts only beyond one)
+    part = corpus[:OPT.SEG_V3 + (OPT.SEG_V3 >> 1)]
+    for label, cfg in (("default", DP()), ("level3", DP(level3=True)),
+                       ("iterations=2", DP(iterations=2)),
+                       ("fast_first=False", DP(fast_first=False)),
+                       ("cost_sample=1 MiB", DP(cost_sample=1 << 20)),
+                       ("lit_surcharge=1.3", DP(lit_surcharge=1.3)),
+                       ("ins_scale=0.7", DP(ins_scale=0.7)),
+                       ("cmd_extra=1.5", DP(cmd_extra=1.5)),
+                       ("seed_q=7", DP(seed_q=7))):
+        kernels.reset_launches()
+        out, wall = timed(lambda: bt.compress(part, quality=11, dp=cfg))
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        print(f"    {label}: {len(part)} B -> {len(out)} B in {wall:.3f} s "
+              f"[{card}]; launches {launched}", flush=True)
+        if bt.decompress(out) != part:
+            sys.exit(f"chip_smoke: the {label} stream does not decode back")
+
+    # -- v1 with two shards: the second shard's seed runs K2
+    part = corpus[:8 << 20]
+    kernels.reset_launches()
+    out, wall = timed(lambda: compress_sharded(part, quality=11, n_shards=2,
+                                               dp=v1))
+    launched = dict(kernels.LAUNCHES)
+    print(f"[12] q11 v1, two shards: {len(part)} B -> {len(out)} B in "
+          f"{wall:.3f} s [{card}]; launches {launched}", flush=True)
+    if bt.decompress(out) != part or not launched["chain_select"] or \
+            not launched["dp_scan_v1"]:
+        sys.exit("chip_smoke: the two-shard v1 stream does not decode, or "
+                 "K2 or K7 did not launch")
+    return launches_v1, launches_ring
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -735,15 +1046,15 @@ def main():
     seg = arr[:OPT.SEG_V3]
     b = OPT._bucket_v3(len(seg))
     seed = OPT._seed_parse(seg, maxd, 0)
-    tables = OPT._cost_tables(seg, seed)
+    tables = OPT._cost_tables(seg, seed, lit_table=True, cfg=OPT.DPConfig())
     dict_g = OPT._dict_probe_global(seg, [seed], 0, maxd)
     bits_tab, ctx_tab, copyq, distq = OPT.device_tables(tables, dev)
     npos, spos, slen, sdist, dloc, dval = OPT.segment_inputs(
         arr, [seed], dict_g, 0, len(seg), b, dev)
     data = OPT.upload_input(arr, len(arr), dev)[:b]
-    pd, cs, litq = OPT.segment_tables(data, npos, maxd, bits_tab, ctx_tab,
-                                      distq, spos, slen, sdist, dloc,
-                                      dval, 0)
+    pd, cs, litq, _ = OPT.segment_tables(data, npos, maxd, bits_tab,
+                                         ctx_tab, distq, spos, slen, sdist,
+                                         dloc, dval, 0)
     n = pd.shape[1]
     nb = n // OPT.B
     nslots = pd.shape[0]
@@ -1001,12 +1312,17 @@ def main():
     # -- 11. the public surface -----------------------------------------
     public_surface(corpus, q11_out, q5_out, card)
 
-    # -- 12. report ------------------------------------------------------
+    # -- 12. the DP variants ----------------------------------------------
+    launches_v1, launches_ring = dp_variants(corpus, rows, dev, card)
+
+    # -- 13. report ------------------------------------------------------
     path_launches = dict(launches, chain_select=launches_q5["chain_select"],
                          bitpack=launches_ds["bitpack"],
-                         lz_resolve=launches_dec["lz_resolve"])
+                         lz_resolve=launches_dec["lz_resolve"],
+                         dp_scan_v1=launches_v1["dp_scan_v1"],
+                         dp_scan_ring=launches_ring["dp_scan_ring"])
     kern = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],

@@ -157,14 +157,16 @@ def test_seed_parse_matches(seeds):
 
 @pytest.mark.parametrize("sample", [None, 1 << 16])
 def test_cost_tables_match(seeds, arr, sample, monkeypatch):
-    """lit_table=True branch, whole input and bounded sample."""
+    """lit_table=True branch, whole input and bounded sample, with the
+    implicit-cell row."""
     seed = seeds[0]
+    cfg = O.DPConfig()
     if sample is not None:
-        monkeypatch.setattr(O, "COST_SAMPLE", sample)
+        cfg = O.DPConfig(cost_sample=sample)
         monkeypatch.setenv("BROTLI_TPU_COST_SAMPLE", str(sample))
-    port = O._cost_tables(arr, seed)
+    port = O._cost_tables(arr, seed, lit_table=True, cfg=cfg)
     ref = OJ._cost_tables(arr, seed, lit_table=True)
-    _eq_all(port, ref[:4])
+    _eq_all(port, ref)
     assert port[0].shape == (64, 256) and port[2].shape == (64,)
 
 
@@ -382,9 +384,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.chain_select_launch(torch.ones(4096, dtype=torch.int32),
                                     4096, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.dp_scan_v1(pd, pd, torch.zeros(4096, dtype=torch.int32),
+                           torch.zeros(64, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.dp_scan_ring(
+            torch.zeros((4096, 128), dtype=torch.int32),
+            torch.zeros(4096, dtype=torch.int32),
+            torch.zeros(4096, dtype=torch.uint8),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(64, dtype=torch.int32), None, 4093)
     assert kernels.LAUNCHES == {"suffix_min": 0, "dp_scan": 0,
                                 "dp_backtrack": 0, "chain_select": 0,
-                                "bitpack": 0, "lz_resolve": 0}
+                                "bitpack": 0, "lz_resolve": 0,
+                                "dp_scan_v1": 0, "dp_scan_ring": 0}
 
 
 def test_profile_busy_time_is_the_union():

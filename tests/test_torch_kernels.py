@@ -194,7 +194,7 @@ def seg_tables(host):
                                   "extreme2", "extreme29", "extreme32"])
 def test_suffix_min_matches_pallas(seg_tables, case):
     if case == "real":
-        p, (pd, cs, _) = seg_tables
+        p, (pd, cs, _, _) = seg_tables
         # the two blocks with the most dictionary edges
         per_block = (pd[-2] >> 25).reshape(-1, B).gt(1).sum(1)
         k = int(per_block[:-1].add(per_block[1:]).argmax())
@@ -288,7 +288,7 @@ def _finish_check(paymat, npos):
 
 
 def test_scan_and_backtrack_match_real(seg_tables):
-    p, (pd, cs, litq) = seg_tables
+    p, (pd, cs, litq, _) = seg_tables
     mp = O.suffix_min(pd, cs, p["copyq"])
     paymat = O.dp_scan(mp, litq)
     assert paymat.shape == (SEG // B, B + 1)
