@@ -5,7 +5,10 @@ with a plain C interface under `brotli_tpu_torch/_build/` at first use
 (all sources in parallel), and is bound with ctypes. A launch runs on
 PyTorch's current stream, allocates nothing itself, and the C side
 returns cudaGetLastError(); a non-zero code raises. LAUNCHES counts the
-launches of each kernel.
+launches of each kernel; SLOW holds the last K7 and K8 launch's int32
+(1,) count of the steps that took the kernel's slow path (K7: a step
+whose sums may wrap runs the exact slot loop; K8: a ring the look-ahead
+did not cover is compared on the chain), on the card, unread.
 
 nvcc is looked up only when a kernel is first needed, so the package
 imports on machines without the CUDA toolkit.
@@ -39,6 +42,7 @@ PACK_TABLE = 2 * (256 + 704 + 64)  # its code table: code and length of
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
             "chain_select": 0, "bitpack": 0, "lz_resolve": 0,
             "dp_scan_v1": 0, "dp_scan_ring": 0}
+SLOW = {"dp_scan_v1": None, "dp_scan_ring": None}
 
 _libs = {}
 _lock = threading.Lock()
@@ -48,8 +52,9 @@ _SIGNATURES = {
     "btt_suffix_min": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                        _P],
     "btt_dp_scan": [_P, _P, _P, ctypes.c_int, _P],
-    "btt_dp_scan_v1": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
-    "btt_dp_scan_ring": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+    "btt_dp_scan_v1": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       _P],
+    "btt_dp_scan_ring": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                          ctypes.c_longlong, _P],
     "btt_dp_backtrack": [_P, _P, _P, ctypes.c_int, _P],
     "btt_chain_select": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
@@ -173,7 +178,9 @@ def dp_scan(mp, litq):
 
 def dp_scan_v1(pd_flat, cs_flat, litq, copyq):
     """K7 on the card: (nslots, n) int32 slots, (n,) literal costs and
-    the copy costs (>= W,) -> int32 paymat (n // B, B + 1)."""
+    the copy costs (>= W,) -> int32 paymat (n // B, B + 1). The slots
+    are copied 16 bytes at a time, so both start on a 16-byte
+    boundary."""
     _check(pd_flat, "pd_flat", 2)
     _check(cs_flat, "cs_flat", 2)
     _check(litq, "litq", 1)
@@ -183,13 +190,17 @@ def dp_scan_v1(pd_flat, cs_flat, litq, copyq):
             not 0 < n < 1 << 31 or copyq.shape[0] < W or \
             not 1 <= nslots <= MAX_SLOTS:
         raise ValueError("dp_scan_v1: bad shapes")
+    if pd_flat.data_ptr() % 16 or cs_flat.data_ptr() % 16:
+        raise ValueError("dp_scan_v1: slots must start on 16 bytes")
     nb = n // B
-    paymat = torch.empty((nb, B + 1), dtype=torch.int32,
-                         device=pd_flat.device)
-    _launch("dp_scan_v1", "btt_dp_scan_v1", pd_flat.device,
-            pd_flat.data_ptr(), cs_flat.data_ptr(), litq.data_ptr(),
-            copyq.data_ptr(), paymat.data_ptr(), nslots, nb)
+    dev = pd_flat.device
+    paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=dev)
+    slow = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch("dp_scan_v1", "btt_dp_scan_v1", dev, pd_flat.data_ptr(),
+            cs_flat.data_ptr(), litq.data_ptr(), copyq.data_ptr(),
+            paymat.data_ptr(), slow.data_ptr(), nslots, nb)
     LAUNCHES["dp_scan_v1"] += 1
+    SLOW["dp_scan_v1"] = slow
     return paymat
 
 
@@ -215,12 +226,14 @@ def dp_scan_ring(mp, litq, data, ring_init, ring_cost, copyq, icell, npos):
                                    icell.shape[0] < W):
         raise ValueError("dp_scan_ring: bad shapes")
     paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=mp.device)
+    slow = torch.zeros(1, dtype=torch.int32, device=mp.device)
     _launch("dp_scan_ring", "btt_dp_scan_ring", mp.device, mp.data_ptr(),
             litq.data_ptr(), data.data_ptr(), ring_init.data_ptr(),
             ring_cost.data_ptr(), copyq.data_ptr(),
             None if icell is None else icell.data_ptr(),
-            paymat.data_ptr(), nb, int(npos))
+            paymat.data_ptr(), slow.data_ptr(), nb, int(npos))
     LAUNCHES["dp_scan_ring"] += 1
+    SLOW["dp_scan_ring"] = slow
     return paymat
 
 

@@ -46,11 +46,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
      against its plain version on the real first 2 MiB v1 segment (28
      and 38 slots) and on seeded cases (equal sums at different
      distances, empty slots, length stubs, costs at and above 1 << 28
-     on live slots, edges to the block end; 28 and 38 slots), K8 (the
-     path-ring scan) on the real first 4 MiB v3 segment with the
-     implicit-cell row off and on and on seeded rings (into the
-     previous block, to the segment start and beyond it, npos cut mid
-     block, wrapped words at the segment end), K1 at the 39 slots of
+     on live slots, edges to the block end, sums that cross 2**31 mid
+     block, a few slots near 2**31 on scattered steps; 28 and 38
+     slots), with its count of steps that ran the exact slot loop (0 on
+     the real segment, above 0 where sums may wrap), K8 (the path-ring
+     scan) on the real first 4 MiB v3 segment with the implicit-cell
+     row off and on and on seeded rings (into the previous block, to
+     the segment start and beyond it, npos cut mid block, wrapped words
+     at the segment end, long literal runs, edges on 30% of the
+     columns, rows at column 1), with its count of steps compared on
+     the chain (0 on the real segment), K1 at the 39 slots of
      the 16-byte level; compress(dp=v1) on the 16 MiB corpus three
      times as in phase 4 (K7 and K4 once a 2 MiB segment, K1 and K3
      never) and dp=ring_scan once (K8 once a 4 MiB segment, K3 never);
@@ -282,7 +287,11 @@ def v1_case(kind, nslots, nb, seed, B=4096, W=64):
     lengths over -64..63: stubs below 2 and negative pd), "empty" (every
     length 0), "stubs" (lengths -3..1 at cheap costs), "expensive"
     (costs at and above 1 << 28 on live slots, and near 2**31 so sums
-    wrap), "block end" (every slot 63 long, cut at each block's end)."""
+    wrap), "block end" (every slot 63 long, cut at each block's end),
+    "cost wrap" (literal costs near 2**20 and slot costs near 1.5 *
+    2**30: once cost_i passes 2**29 the slots' sums cross 2**31 and
+    wrap, inside a block), "mixed" (the ties case, with one slot in 200
+    at a cost near 2**31 on scattered steps)."""
     rng = np.random.default_rng(seed)
     n = nb * B
     ls = rng.integers(-64, 64, (nslots, n)).astype(np.int64)
@@ -299,9 +308,19 @@ def v1_case(kind, nslots, nb, seed, B=4096, W=64):
                         (nslots, n))
     elif kind == "block end":
         ls[:] = 63
+    elif kind == "cost wrap":
+        cs = rng.choice([3 << 29, (3 << 29) + 1, (3 << 29) + 300],
+                        (nslots, n))
+    elif kind == "mixed":
+        rare = rng.random((nslots, n)) < 0.005
+        cs = np.where(rare, (1 << 31) - rng.integers(1, 400, (nslots, n)),
+                      cs)
     ls = np.minimum(ls, B - np.arange(n) % B)
     pd = ((ls << 25) | ds) & 0xFFFFFFFF
     litq = rng.integers(20, 200, n).astype(np.int32)
+    if kind == "cost wrap":
+        litq = rng.integers((1 << 20) - 500, (1 << 20) + 500, n).astype(
+            np.int32)
     copyq = rng.integers(0, 300, W).astype(np.int32)
     copyq[:2] = 1 << 28
     return (pd.astype(np.uint32).view(np.int32), cs.astype(np.int32), litq,
@@ -318,7 +337,11 @@ def ring_case(kind, nb, seed, B=4096, W=64):
     enters with ring b * B + k, k in -1, 0, 1: src before, at and after
     the segment start), "npos cut" (npos ends half way into the last
     block), "wrap" (the last block repeats the segment's head, so the
-    lanes at the end compare wrapped words)."""
+    lanes at the end compare wrapped words), "literal run" (edges at
+    0.1%: rings inherited across long literal runs), "ring churn" (edges
+    at 30%: R set at column 2 on most steps), "column 1" (rows reach
+    column 1 below the literal's cost: rings from a row's payload there,
+    which K8's look-ahead does not cover)."""
     rng = np.random.default_rng(seed)
     n = nb * B
     period = rng.integers(0, 256, 2000, dtype=np.uint8)
@@ -329,9 +352,14 @@ def ring_case(kind, nb, seed, B=4096, W=64):
         data[-B:] = data[:B]
     m = np.full((n, W), 1 << 29, np.int32)
     py = np.zeros((n, W), np.int32)
-    live = rng.random((n, W)) < 0.02
-    live[:, :2] = False
+    share = {"literal run": 0.001, "ring churn": 0.3}.get(kind, 0.02)
+    live = rng.random((n, W)) < share
+    live[:, 0] = False
+    if kind != "column 1":
+        live[:, 1] = False
     m[live] = rng.integers(200, 900, int(live.sum()))
+    if kind == "column 1":
+        m[live[:, 1], 1] = rng.integers(10, 40, int(live[:, 1].sum()))
     dist = rng.choice([2000, 4000, 4100, 6000, 9000], (n, W))
     py[live] = ((np.arange(W)[None, :] << 25) | dist)[live]
     mp = np.concatenate([m, py], axis=1)
@@ -807,21 +835,25 @@ def dp_variants(corpus, rows, dev, card):
     seg_seeds = [t(a.astype(np.int64)) for a in OPT._seg_seed_edges(
         [seed], 0, OPT.SEG, OPT.SEG // 32)]
     data1 = t(arr[:OPT.SEG])
-    errs = {}
+    errs, slow7 = {}, {}
+
+    def k7_vs_plain(label, *args):
+        got = kernels.dp_scan_v1(*args)
+        slow7[label] = int(kernels.SLOW["dp_scan_v1"])
+        errs[label] = max_abs_err(got, OPT.dp_scan_v1_plain(*args))
+
     for label, levels in (("real", OPT.LEVELS),
                           ("real 38 slots", DP(level3=True).levels)):
         pd, cs, litq = OPT.edges_v1(data1, OPT.SEG - 3, maxd, lit, distq1,
                                     *seg_seeds, levels=levels)
-        errs[label] = max_abs_err(kernels.dp_scan_v1(pd, cs, litq, copyq1),
-                                  OPT.dp_scan_v1_plain(pd, cs, litq, copyq1))
+        k7_vs_plain(label, pd, cs, litq, copyq1)
     n1, nb1 = OPT.SEG, OPT.SEG // B
     for kind, ns, sd in (("ties", 28, 1), ("ties", 38, 2), ("empty", 28, 3),
                          ("stubs", 28, 6), ("expensive", 28, 4),
-                         ("block end", 38, 5)):
-        case = [t(a) for a in v1_case(kind, ns, nb1, sd)]
-        errs[f"{kind} {ns}"] = max_abs_err(kernels.dp_scan_v1(*case),
-                                           OPT.dp_scan_v1_plain(*case))
-    del case
+                         ("block end", 38, 5), ("cost wrap", 28, 7),
+                         ("mixed", 38, 8)):
+        k7_vs_plain(f"{kind} {ns}", *(t(a) for a in v1_case(kind, ns, nb1,
+                                                              sd)))
     pd, cs, litq = OPT.edges_v1(data1, OPT.SEG - 3, maxd, lit, distq1,
                                 *seg_seeds)
     pay1 = kernels.dp_scan_v1(pd, cs, litq, copyq1)
@@ -842,7 +874,11 @@ def dp_variants(corpus, rows, dev, card):
                 + pay1.numel()) * 4,
         nops=2 * int(((pd >> 25) - 1).clamp(min=0).sum()) + n1 * W * 2)
     print(f"[12] K7 dp_scan_v1 at n={n1}, {pd.shape[0]} slots: max_abs_err "
-          f"{errs}", flush=True)
+          f"{errs}; exact-path steps {slow7}", flush=True)
+    if slow7["real"] or slow7["real 38 slots"] or \
+            not slow7["expensive 28"] or not slow7["cost wrap 28"]:
+        sys.exit(f"chip_smoke: K7's exact-path steps {slow7}: not 0 on the "
+                 f"real segments, or 0 on expensive or cost wrap")
     del pd, cs, litq, pay1, data1, seg_seeds, lit
     torch.cuda.empty_cache()
 
@@ -875,22 +911,26 @@ def dp_variants(corpus, rows, dev, card):
     del pd, cs
     ring_init = dist_fill.view(-1, B)[:, 0].contiguous()
     args8 = (mp, litq, data, ring_init, distq[:1], copyq)
-    errs = {}
+    errs, slow8 = {}, {}
+
+    def k8_vs_plain(label, *args):
+        got = kernels.dp_scan_ring(*args)
+        slow8[label] = int(kernels.SLOW["dp_scan_ring"])
+        errs[label] = max_abs_err(got, OPT.dp_scan_ring_plain(*args))
+
     for label, ic in (("real", None), ("real icell", icell)):
-        errs[label] = max_abs_err(
-            kernels.dp_scan_ring(*args8, ic, npos),
-            OPT.dp_scan_ring_plain(*args8, ic, npos))
+        k8_vs_plain(label, *args8, ic, npos)
     nb3 = b // B
     for kind, use_icell in (("prev block", False), ("to start", True),
                             ("to start", False), ("npos cut", True),
-                            ("wrap", False)):
+                            ("wrap", False), ("literal run", False),
+                            ("ring churn", True), ("column 1", False)):
         mp_s, lq_s, d_s, ri_s, rc_s, cq_s, ic_s, np_s = ring_case(kind, nb3, 7)
-        case = (t(mp_s), t(lq_s), t(d_s), t(ri_s),
-                torch.tensor([rc_s], dtype=torch.int32, device=dev), t(cq_s),
-                t(ic_s) if use_icell else None, np_s)
-        errs[f"{kind}{' icell' if use_icell else ''}"] = max_abs_err(
-            kernels.dp_scan_ring(*case), OPT.dp_scan_ring_plain(*case))
-    del case
+        k8_vs_plain(f"{kind}{' icell' if use_icell else ''}", t(mp_s),
+                    t(lq_s), t(d_s), t(ri_s),
+                    torch.tensor([rc_s], dtype=torch.int32, device=dev),
+                    t(cq_s), t(ic_s) if use_icell else None, np_s)
+        del mp_s
     pay8 = kernels.dp_scan_ring(*args8, None, npos)
     rows["K8"] = dict(
         name="dp_scan_ring", route="cuda",
@@ -911,7 +951,11 @@ def dp_variants(corpus, rows, dev, card):
     rows["K1"]["max_abs_err"] = max(rows["K1"]["max_abs_err"],
                                     *errs1.values())
     print(f"[12] K1 suffix_min at 39 slots: max_abs_err {errs1}; K8 "
-          f"dp_scan_ring at n={b}: max_abs_err {errs}", flush=True)
+          f"dp_scan_ring at n={b}: max_abs_err {errs}; steps compared on "
+          f"the chain {slow8}", flush=True)
+    if slow8["real"] or slow8["real icell"] or not slow8["column 1"]:
+        sys.exit(f"chip_smoke: K8's chain compares {slow8}: not 0 on the "
+                 f"real segment, or 0 where column 1 takes rows")
     del mp, litq, data, args8, pay8, ring_init, icell
     torch.cuda.empty_cache()
     for k in ("K7", "K8"):

@@ -304,7 +304,11 @@ def v1_case(kind, nslots, nb, seed):
     lengths over -64..63: stubs below 2 and negative pd), "empty" (every
     length 0), "stubs" (lengths -3..1 at cheap costs), "expensive"
     (costs at and above 1 << 28 on live slots, and near 2**31 so sums
-    wrap), "block end" (every slot 63 long, cut at each block's end)."""
+    wrap), "block end" (every slot 63 long, cut at each block's end),
+    "cost wrap" (literal costs near 2**20 and slot costs near 1.5 *
+    2**30: once cost_i passes 2**29 the slots' sums cross 2**31 and
+    wrap, inside a block), "mixed" (the ties case, with
+    one slot in 200 at a cost near 2**31 on scattered steps)."""
     rng = np.random.default_rng(seed)
     n = nb * B
     ls = rng.integers(-64, 64, (nslots, n)).astype(np.int64)
@@ -321,9 +325,19 @@ def v1_case(kind, nslots, nb, seed):
                         (nslots, n))
     elif kind == "block end":
         ls[:] = 63
+    elif kind == "cost wrap":
+        cs = rng.choice([3 << 29, (3 << 29) + 1, (3 << 29) + 300],
+                        (nslots, n))
+    elif kind == "mixed":
+        rare = rng.random((nslots, n)) < 0.005
+        cs = np.where(rare, (1 << 31) - rng.integers(1, 400, (nslots, n)),
+                      cs)
     ls = np.minimum(ls, B - np.arange(n) % B)
     pd = ((ls << 25) | ds) & 0xFFFFFFFF
     litq = rng.integers(20, 200, n).astype(np.int32)
+    if kind == "cost wrap":
+        litq = rng.integers((1 << 20) - 500, (1 << 20) + 500, n).astype(
+            np.int32)
     copyq = rng.integers(0, 300, W).astype(np.int32)
     copyq[:2] = 1 << 28
     return (pd.astype(np.uint32).view(np.int32), cs.astype(np.int32), litq,
@@ -331,7 +345,8 @@ def v1_case(kind, nslots, nb, seed):
 
 
 _V1_CASES = [("ties", 28, 1), ("ties", 38, 2), ("empty", 28, 3),
-             ("stubs", 28, 6), ("expensive", 28, 4), ("block end", 38, 5)]
+             ("stubs", 28, 6), ("expensive", 28, 4), ("block end", 38, 5),
+             ("cost wrap", 28, 7), ("mixed", 38, 8)]
 
 
 @pytest.mark.parametrize("kind,nslots,sd", _V1_CASES)
@@ -467,7 +482,12 @@ def ring_case(kind, nb, seed):
     enters with ring b * B + k for k in -1, 0, 1: src one before, at and
     after the segment start), "npos cut" (npos ends half way into the
     last block), "wrap" (the last block's bytes repeat the segment's
-    head, so the lanes at the end compare wrapped words)."""
+    head, so the lanes at the end compare wrapped words), "literal run"
+    (edges at 0.1%, so a ring is inherited across runs of more than 32
+    literals), "ring churn" (edges at 30%, so R is set at column 2 on
+    most steps), "column 1" (the rows also reach column 1, below the
+    literal's cost, so a ring comes from a row's payload there: one the
+    look-ahead of csrc/dp_scan_ring.cu does not cover)."""
     rng = np.random.default_rng(seed)
     n = nb * B
     period = rng.integers(0, 256, 2000, dtype=np.uint8)
@@ -478,9 +498,14 @@ def ring_case(kind, nb, seed):
         data[-B:] = data[:B]
     m = np.full((n, W), O.NO_EDGE, np.int32)
     py = np.zeros((n, W), np.int32)
-    live = rng.random((n, W)) < 0.02
-    live[:, :2] = False
+    share = {"literal run": 0.001, "ring churn": 0.3}.get(kind, 0.02)
+    live = rng.random((n, W)) < share
+    live[:, 0] = False
+    if kind != "column 1":
+        live[:, 1] = False
     m[live] = rng.integers(200, 900, int(live.sum()))
+    if kind == "column 1":
+        m[live[:, 1], 1] = rng.integers(10, 40, int(live[:, 1].sum()))
     dist = rng.choice([2000, 4000, 4100, 6000, 9000], (n, W))
     py[live] = ((np.arange(W)[None, :] << 25) | dist)[live]
     mp = np.concatenate([m, py], axis=1)
@@ -500,9 +525,12 @@ def ring_case(kind, nb, seed):
             npos)
 
 
-@pytest.mark.parametrize("kind,use_icell", [
-    ("prev block", False), ("to start", True), ("npos cut", False),
-    ("wrap", True)])
+RING_KINDS = [("prev block", False), ("to start", True), ("npos cut", False),
+              ("wrap", True), ("literal run", False), ("ring churn", True),
+              ("column 1", False)]
+
+
+@pytest.mark.parametrize("kind,use_icell", RING_KINDS)
 def test_scan_ring_seeded(jax_env, kind, use_icell):
     mp, litq, data, ring_init, rc, copyq, icell, npos = ring_case(kind, 3,
                                                                  7)
