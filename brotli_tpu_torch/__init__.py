@@ -2,10 +2,13 @@
 
 The device half (the q10/q11 optimal-parse DP, the q<=9 LZ matcher, the
 device serializer's bit pack, the device decoder's LZ resolve) runs as
-hand-written CUDA kernels for Hopper (csrc/); the host half is copied
-from brotli_tpu, so this package imports neither JAX nor brotli_tpu.
+hand-written CUDA kernels for Hopper (csrc/); the host half is a copy
+of brotli_tpu's, so this package imports neither JAX nor brotli_tpu.
 Device entry points run on the card unless the caller passes
-device="cpu"; the native routes of the public API need no card.
+device="cpu"; the native routes of the public API need no card. The
+sharded encoders take one shard per card where several are visible
+(parallel.shard) or one set of shards per process
+(parallel.multihost).
 
 Public API as brotli_tpu's (python/brotli.py of the reference):
 ``compress``, ``decompress``, ``decompress_concatenated``,

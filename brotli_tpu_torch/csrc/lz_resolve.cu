@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int T = 8192;           // positions per tile (one CTA)
@@ -81,6 +83,7 @@ constexpr int SMEM_WORDS = T + T / 16;
 constexpr int LITS = 4096;
 constexpr int SMEM_BYTES = SMEM_WORDS * 8 + LITS;
 constexpr int JUMP_THREADS = 256;
+constexpr int MAX_DEVICES = 64;  // devices btt_lz_resolve sets up
 
 constexpr unsigned long long RES = 1ull << 63;
 constexpr unsigned long long DEPTH = 0x7fffffffull << 32;
@@ -374,21 +377,32 @@ extern "C" int btt_lz_resolve(const uint8_t* lits, long long nlits,
                               int n_steps, void* st, uint8_t* out,
                               void* cnt, cudaStream_t stream) {
   if (nlits <= 0 || ncmd <= 0 || n_out <= 0 || n_steps < 0) return -1;
-  static int jump_grid = 0;
-  cudaError_t e;
-  if (jump_grid == 0) {
-    e = cudaFuncSetAttribute(tile_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, jump_kernel, JUMP_THREADS, 0)) != cudaSuccess)
-      return (int)e;
-    jump_grid = sms * per_sm;
+  // The tile kernel's shared-memory attribute and the jump grid belong
+  // to the current device: a process that decodes on a second card must
+  // set the attribute there too, or the tile launch fails. Both are set
+  // up once a device, under a lock, since any host thread may launch.
+  static std::mutex setup_lock;
+  static int jump_grids[MAX_DEVICES];  // 0: not set up on that device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return -1;
+  int jump_grid;
+  {
+    std::lock_guard<std::mutex> guard(setup_lock);
+    if (jump_grids[dev] == 0) {
+      int sms = 0, per_sm = 0;
+      if ((e = cudaFuncSetAttribute(
+               tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               SMEM_BYTES)) != cudaSuccess ||
+          (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+          (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, jump_kernel, JUMP_THREADS, 0)) != cudaSuccess)
+        return (int)e;
+      jump_grids[dev] = sms * per_sm;
+    }
+    jump_grid = jump_grids[dev];
   }
   unsigned long long* c = static_cast<unsigned long long*>(cnt);
   unsigned long long* w = static_cast<unsigned long long*>(st);

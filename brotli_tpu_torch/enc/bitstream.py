@@ -3,7 +3,8 @@ header, metablock header, varlen and uncompressed-metablock writers (the
 whole-input stored fallback and the device serializer's host header),
 the command planner the host cost tables replay the seed parse through,
 the distance ring after a command sequence (the entry ring of a shard)
-and the emitted code lengths of a tree. Copied from
+and its push summary (the ring chain across processes), and the emitted
+code lengths of a tree. Copied from
 brotli_tpu.enc.bitstream.
 """
 
@@ -109,6 +110,35 @@ def ring_after(dists, flags, ring=None) -> np.ndarray:
     keep = np.concatenate([[cd[0] != ring[0]], cd[1:] != cd[:-1]])
     pv = np.concatenate([ring[::-1], cd[keep]])
     return pv[:-5:-1].copy()
+
+
+def ring_push_summary(dists, flags, tail: int = 5) -> np.ndarray:
+    """Entry-independent push summary of a command stream: the last
+    `tail` deduped candidate-push distances under ring_after's rule
+    (flags >= 2 never push; consecutive duplicates collapse; the
+    entry-ring comparison is deferred to ring_apply_summary).
+    Zero-padded; real distances are never 0."""
+    cd = np.asarray(dists, dtype=np.int64)[np.asarray(flags) < 2]
+    cd = cd[cd > 0]
+    out = np.zeros(tail, np.int64)
+    if len(cd) == 0:
+        return out
+    keep = np.concatenate([[True], cd[1:] != cd[:-1]])
+    t = cd[keep][-tail:]
+    out[: len(t)] = t
+    return out
+
+
+def ring_apply_summary(ring, tail) -> np.ndarray:
+    """Advance a 4-slot ring across a shard given its push summary.
+    Exact: only the first candidate can collapse against the entry
+    ring, and when more pushes preceded the tail the >= 4 remaining
+    tail pushes refill the whole ring either way (hence tail = 5)."""
+    ring = list(initial_ring() if ring is None else ring)
+    for d in (int(x) for x in tail if x > 0):
+        if d != ring[0]:
+            ring = [d, ring[0], ring[1], ring[2]]
+    return np.asarray(ring[:4], np.int64)
 
 
 def encode_distances_vec(d: np.ndarray, npostfix: int, ndirect: int):

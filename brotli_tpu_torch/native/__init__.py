@@ -19,6 +19,7 @@ import numpy as np
 
 from ..dec.errors import NAMES
 from ..format.dictionary import dictionary_data
+from ..utils import filelock
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _LIB = _DIR / "_build" / "libbtpu.so"
@@ -28,19 +29,25 @@ _lib = None
 _lock = threading.Lock()
 
 
-def build() -> None:
-    """Compile the library unless it is newer than its sources."""
+def build() -> bool:
+    """Compile the library unless it is newer than its sources; returns
+    whether it compiled. The check and the compile hold a lock on a file
+    in `_build/` that other processes take too, and the compiler writes
+    a temporary file that replaces the library in one step, so a process
+    never loads a library that another is still writing."""
     (_DIR / "_build").mkdir(exist_ok=True)
-    newest = max(s.stat().st_mtime
-                 for s in _SRCS + (_DIR / "btpu_tables.h",))
-    if _LIB.exists() and _LIB.stat().st_mtime >= newest:
-        return
-    tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(
-        ["cc", "-O2", "-march=native", "-shared", "-fPIC", "-o",
-         str(tmp)] + [str(s) for s in _SRCS] + ["-lm"],
-        check=True, capture_output=True)
-    os.replace(tmp, _LIB)
+    with filelock.locked(_DIR / "_build" / "build.lock"):
+        newest = max(s.stat().st_mtime
+                     for s in _SRCS + (_DIR / "btpu_tables.h",))
+        if _LIB.exists() and _LIB.stat().st_mtime >= newest:
+            return False
+        tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(
+            ["cc", "-O2", "-march=native", "-shared", "-fPIC", "-o",
+             str(tmp)] + [str(s) for s in _SRCS] + ["-lm"],
+            check=True, capture_output=True)
+        os.replace(tmp, _LIB)
+        return True
 
 
 def get_lib():

@@ -15,12 +15,15 @@ imports on machines without the CUDA toolkit.
 """
 
 import ctypes
+import os
 import pathlib
 import shutil
 import subprocess
 import threading
 
 import torch
+
+from ..utils import filelock
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -83,9 +86,14 @@ def build(extra_flags=()) -> dict:
     """Compile every stale kernel library, one nvcc per source, all
     started together. Returns {source: compiler output} for the
     sources it compiled; raises with the compiler's output on
-    failure."""
-    with _lock:
-        _BUILD.mkdir(exist_ok=True)
+    failure.
+
+    The staleness check and the compiles hold a lock on a file in
+    `_build/` that other processes take too, and nvcc writes temporary
+    files that replace the libraries once all have compiled, so a
+    process never loads a library that another is still writing."""
+    _BUILD.mkdir(exist_ok=True)
+    with _lock, filelock.locked(_BUILD / "build.lock"):
         stale = [s for s in SOURCES
                  if not _lib_path(s).exists() or
                  _lib_path(s).stat().st_mtime <
@@ -93,16 +101,23 @@ def build(extra_flags=()) -> dict:
         if not stale:
             return {}
         nvcc = _nvcc()
-        procs = {s: subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(_lib_path(s)),
-             str(_CSRC / f"{s}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s in stale}
-        logs = {s: p.communicate()[0] for s, p in procs.items()}
-        bad = [s for s, p in procs.items() if p.returncode != 0]
-        if bad:
-            raise RuntimeError("nvcc failed:\n" +
-                               "\n".join(logs[s] for s in bad))
+        tmp = {s: _BUILD / f"lib{s}.{os.getpid()}.tmp.so" for s in stale}
+        try:
+            procs = {s: subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp[s]),
+                 str(_CSRC / f"{s}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for s in stale}
+            logs = {s: p.communicate()[0] for s, p in procs.items()}
+            bad = [s for s, p in procs.items() if p.returncode != 0]
+            if bad:
+                raise RuntimeError("nvcc failed:\n" +
+                                   "\n".join(logs[s] for s in bad))
+            for s in stale:
+                os.replace(tmp[s], _lib_path(s))
+        finally:
+            for t in tmp.values():
+                t.unlink(missing_ok=True)
         return logs
 
 
@@ -133,6 +148,13 @@ def _check(t: torch.Tensor, name: str, ndim: int,
                          f"{ndim} dims, got {t.dtype} {tuple(t.shape)}")
 
 
+def _count(name: str) -> None:
+    # several host threads launch at once (the mesh's shards), and a
+    # bare += can lose one of their counts
+    with _lock:
+        LAUNCHES[name] += 1
+
+
 def _launch(source, symbol, device, *args) -> None:
     fn = _fn(source, symbol)
     with torch.cuda.device(device):
@@ -156,7 +178,7 @@ def suffix_min(pd_flat, cs_flat, copyq):
     _launch("suffix_min", "btt_suffix_min", pd_flat.device,
             pd_flat.data_ptr(), cs_flat.data_ptr(), copyq.data_ptr(),
             out.data_ptr(), nslots, n)
-    LAUNCHES["suffix_min"] += 1
+    _count("suffix_min")
     return out
 
 
@@ -172,7 +194,7 @@ def dp_scan(mp, litq):
     paymat = torch.empty((nb, B + 1), dtype=torch.int32, device=mp.device)
     _launch("dp_scan", "btt_dp_scan", mp.device, mp.data_ptr(),
             litq.data_ptr(), paymat.data_ptr(), nb)
-    LAUNCHES["dp_scan"] += 1
+    _count("dp_scan")
     return paymat
 
 
@@ -199,7 +221,7 @@ def dp_scan_v1(pd_flat, cs_flat, litq, copyq):
     _launch("dp_scan_v1", "btt_dp_scan_v1", dev, pd_flat.data_ptr(),
             cs_flat.data_ptr(), litq.data_ptr(), copyq.data_ptr(),
             paymat.data_ptr(), slow.data_ptr(), nslots, nb)
-    LAUNCHES["dp_scan_v1"] += 1
+    _count("dp_scan_v1")
     SLOW["dp_scan_v1"] = slow
     return paymat
 
@@ -232,7 +254,7 @@ def dp_scan_ring(mp, litq, data, ring_init, ring_cost, copyq, icell, npos):
             ring_cost.data_ptr(), copyq.data_ptr(),
             None if icell is None else icell.data_ptr(),
             paymat.data_ptr(), slow.data_ptr(), nb, int(npos))
-    LAUNCHES["dp_scan_ring"] += 1
+    _count("dp_scan_ring")
     SLOW["dp_scan_ring"] = slow
     return paymat
 
@@ -250,7 +272,7 @@ def dp_backtrack(paymat):
                              device=paymat.device)
     _launch("dp_backtrack", "btt_dp_backtrack", paymat.device,
             paymat.data_ptr(), gsrc.data_ptr(), vals.data_ptr(), nb)
-    LAUNCHES["dp_backtrack"] += 1
+    _count("dp_backtrack")
     return gsrc, vals
 
 
@@ -272,7 +294,7 @@ def chain_select_launch(skip, n, start):
     scratch = torch.empty(4 * nchunks + 2, dtype=torch.int32, device=dev)
     _launch("chain_select", "btt_chain_select", dev, skip.data_ptr(),
             sel.data_ptr(), scratch.data_ptr(), n, int(start))
-    LAUNCHES["chain_select"] += 1
+    _count("chain_select")
     return sel, scratch[-1:]
 
 
@@ -301,7 +323,7 @@ def bitpack(vals, markers, tables, bit0: int, cap_words: int,
     _launch("bitpack", "btt_bitpack", dev, vals.data_ptr(),
             markers.data_ptr(), tab.data_ptr(), n, bit0, words.data_ptr(),
             cap_words, scratch.data_ptr())
-    LAUNCHES["bitpack"] += 1
+    _count("bitpack")
     if stats:
         return words, scratch[-1], scratch[-2]
     return words, scratch[-1]
@@ -336,7 +358,7 @@ def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int,
             dist.data_ptr(), ends.data_ptr(), lit_off.data_ptr(), ncmd,
             n_out, n_steps, states.data_ptr(), out.data_ptr(),
             cnt.data_ptr())
-    LAUNCHES["lz_resolve"] += 1
+    _count("lz_resolve")
     return (out, cnt[:1], cnt[1:]) if stats else (out, cnt[:1])
 
 

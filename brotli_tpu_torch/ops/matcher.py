@@ -168,6 +168,28 @@ def _collect_segment(handles):
     return m, lens, dists
 
 
+def _post_segment(buf, handles, start, base, max_distance, use_dict):
+    """The host's post-pass over one segment queued with `_run_segment`:
+    read back its matches, extend the cap-hit ones, probe the static
+    dictionary over weak-match gaps when `use_dict`, and keep the
+    matches from `start` on (buf[:start] is window history). `base` is
+    the absolute stream offset of buf[0]. Returns (pos, len, dist,
+    flag) with pos relative to `start`."""
+    with trace.stage("match.fetch"):
+        m, lens, dists = _collect_segment(handles)
+    flags = np.zeros(len(m), np.int64)
+    with trace.stage("match.extend"):
+        m, lens, dists, flags = _extend_capped(buf, m, lens, dists, flags,
+                                               CAP, 1 << 24)
+    if use_dict:
+        with trace.stage("match.dict-post"):
+            m, lens, dists, flags = add_dictionary_matches(
+                buf, m, lens, dists, flags, max_distance, base,
+                active_from=start)
+    keep = m >= start
+    return m[keep] - start, lens[keep], dists[keep], flags[keep]
+
+
 def find_matches_device(data: np.ndarray, max_distance: int,
                         quality: int = 1, base: int = 0, use_dict=None,
                         device=None):
@@ -200,22 +222,12 @@ def find_matches_device(data: np.ndarray, max_distance: int,
                 padded, npos, max_distance, ncand, lo - ctx_lo, dev)))
     all_m, all_l, all_d, all_f = [], [], [], []
     for lo, ctx_lo, buf, h in handles:
-        with trace.stage("match.fetch"):
-            m, m_l, m_d = _collect_segment(h)
-        m_f = np.zeros(len(m), np.int64)
-        with trace.stage("match.extend"):
-            m, m_l, m_d, m_f = _extend_capped(buf, m, m_l, m_d, m_f, CAP,
-                                              1 << 24)
-        if use_dict:  # dictionary probe over weak-match gaps
-            with trace.stage("match.dict-post"):
-                m, m_l, m_d, m_f = add_dictionary_matches(
-                    buf, m, m_l, m_d, m_f, max_distance, base + ctx_lo,
-                    active_from=lo - ctx_lo)
-        keep = m >= (lo - ctx_lo)
-        all_m.append(m[keep] + ctx_lo)
-        all_l.append(m_l[keep])
-        all_d.append(m_d[keep])
-        all_f.append(m_f[keep])
+        m, m_l, m_d, m_f = _post_segment(buf, h, lo - ctx_lo, base + ctx_lo,
+                                         max_distance, use_dict)
+        all_m.append(m + lo)
+        all_l.append(m_l)
+        all_d.append(m_d)
+        all_f.append(m_f)
     if not all_m:
         z = np.zeros(0, np.int64)
         return z, z, z, z

@@ -37,6 +37,7 @@ segment prep, collect and span emission -- is copied from
 optimal_jax.py; its environment variables are the fields of DPConfig.
 """
 
+import concurrent.futures as futures
 import dataclasses
 
 import numpy as np
@@ -1219,6 +1220,110 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
     with trace.stage("dp.dict-post"):
         return add_dictionary_matches(arr, m, lens, dists, flags,
                                       max_distance, base)
+
+
+def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
+                                 dp=None):
+    """The q10/q11 parse of the mesh (optimal_jax.find_matches_optimal_
+    sharded): shard si's DP runs on devices[si]; a device named more
+    than once queues its shards there.
+
+    Per shard, on a thread pool: up to SEG_V3 bytes of the input before
+    it as candidate window history, so matches reach across the seam;
+    the seed parse (native for the shard that
+    starts the stream, else the device matcher, K2, on its device); the
+    cost tables; the dictionary probe. Then per round k every shard's
+    k-th segment runs `dp_v3_segment` on its device, all padded to one
+    common bucket; a shard already out of segments runs a zero one, as
+    every device runs the JAX mesh's one program. Then per shard: the
+    collect, coalesce, bridge and dictionary post-pass, keeping the
+    matches past its halo.
+
+    Of `dp` (a DPConfig, None = the default) only what the JAX mesh's
+    functions read reaches this path: ring_scan and icell (K8 in place
+    of K3), level3, the cost knobs and seed_q. The JAX mesh always runs
+    v3 and reads neither BROTLI_TPU_DP, DP_ITERS nor FAST_FIRST, so
+    `mode`, `iterations` and `fast_first` are ignored here.
+
+    Returns per-shard (m, lens, dists, flags) with m relative to the
+    shard's [lo, hi) span."""
+    cfg = DPConfig() if dp is None else dp
+    n_shards = len(bounds) - 1
+    if len(devices) != n_shards:
+        raise ValueError(f"{n_shards} shards, {len(devices)} devices")
+    devs = [resolve(d) for d in devices]
+
+    def prep_shard(si):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        h = min(int(max_distance), lo, SEG_V3)
+        buf = np.ascontiguousarray(arr[lo - h:hi])
+        base = lo - h
+        with trace.stage("dp.seed"):
+            seed = _seed_parse(buf, max_distance, base, devs[si], cfg.seed_q)
+        with trace.stage("dp.cost-tables"):
+            tables = _cost_tables(buf, seed, lit_table=True, cfg=cfg)
+        dict_g = _dict_probe_global(buf, [seed], base, max_distance)
+        return dict(lo=lo, hi=hi, h=h, buf=buf, base=base, seed=seed,
+                    tables=tables, dict_g=dict_g)
+
+    with futures.ThreadPoolExecutor(max_workers=min(n_shards, 8)) as ex:
+        shards = list(ex.map(prep_shard, range(n_shards)))
+
+    # one common bucket: the JAX mesh compiles one program for every
+    # (shard, round)
+    b = max(_bucket_v3(min(len(s["buf"]), SEG_V3)) for s in shards)
+    capm = b // CAPM_DIV
+    rounds = max((len(s["buf"]) + SEG_V3 - 1) // SEG_V3 for s in shards)
+    for s, dev in zip(shards, devs):
+        s["dtabs"] = device_tables(s["tables"], dev)
+        s["icell"] = torch.from_numpy(s["tables"][4].astype(np.int32)).to(
+            dev) if cfg.icell else None
+
+    handles = [[] for _ in range(n_shards)]
+    for k in range(rounds):
+        lo_k = k * SEG_V3
+        for si, (s, dev) in enumerate(zip(shards, devs)):
+            nbuf = len(s["buf"])
+            hi_k = min(lo_k + SEG_V3, nbuf)
+            padded = np.zeros(b, np.uint8)
+            if lo_k >= nbuf:  # shard exhausted: a zero segment
+                z = torch.zeros(b // 128, dtype=torch.int64, device=dev)
+                zd = torch.zeros(b // 64, dtype=torch.int64, device=dev)
+                npos, spos, slen, sdist, dloc, dval = 0, z, z, z, zd, zd
+            else:
+                padded[:hi_k - lo_k] = s["buf"][lo_k:hi_k]
+                npos, spos, slen, sdist, dloc, dval = segment_inputs(
+                    s["buf"], [s["seed"]], s["dict_g"], lo_k, hi_k, b, dev)
+            bits_tab, ctx_tab, copyq, distq = s["dtabs"]
+            with trace.stage("dp.dispatch"):
+                packed, full = dp_v3_segment(
+                    torch.from_numpy(padded).to(dev), npos, max_distance,
+                    bits_tab, ctx_tab, copyq, distq, spos, slen, sdist,
+                    dloc, dval, lo_k + s["base"], capm=capm, cfg=cfg,
+                    icell_q=s["icell"])
+            if lo_k < nbuf:
+                handles[si].append((lo_k, capm, packed, full,
+                                    fetch.mark(dev)))
+
+    out = []
+    for si, s in enumerate(shards):
+        all_m, all_l, all_d, all_f = _collect_v3(
+            handles[si], (s["dict_g"][0].astype(np.int64), s["dict_g"][2]),
+            max_distance, s["base"])
+        if not all_m:
+            z = np.zeros(0, np.int64)
+            out.append((z, z, z, z))
+            continue
+        m, lens, dists, flags = bridge_matches(s["buf"], *_coalesce(
+            np.concatenate(all_m), np.concatenate(all_l),
+            np.concatenate(all_d), np.concatenate(all_f)))
+        with trace.stage("dp.dict-post"):
+            m, lens, dists, flags = add_dictionary_matches(
+                s["buf"], m, lens, dists, flags, max_distance, s["base"])
+        keep = m >= s["h"]
+        out.append((m[keep] - s["h"], lens[keep], dists[keep],
+                    flags[keep]))
+    return out
 
 
 def _stream_v3(arr, handles, dict_table, n, mb_size, max_distance,

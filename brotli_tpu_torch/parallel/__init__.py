@@ -1,4 +1,8 @@
-"""Sharded compression (counterpart of brotli_tpu.parallel)."""
+"""Sharded compression (counterpart of brotli_tpu.parallel):
+`shard.compress_sharded` (one card, or one shard per card: the mesh),
+`multihost.compress_sharded_mp` (the shards of several processes) and
+`device_serialize` (the device serializer); here, the native serializer
+of one shard, which both sharded encoders call."""
 
 from .. import native
 

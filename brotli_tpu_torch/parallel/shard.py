@@ -1,16 +1,28 @@
-"""Sharded compression on one card (counterpart of
-brotli_tpu.parallel.shard).
+"""Sharded compression (counterpart of brotli_tpu.parallel.shard).
 
-The input splits into shards; the card match-finds them one after
-another (the device matcher at q<=9, the optimal-parse DP at q>=10,
-each with the shard's absolute offset as its base), and each shard is
+The input splits into shards; each is match-found on a device and
 serialized as whole byte-aligned metablock sequences that concatenate
 into ONE valid stream (non-last shards end with an empty metadata
 block): natively on host threads, or with serializer="device" on the
-card (parallel/device_serialize.py), one shard after another, a shard
-the device path does not take going to the native serializer. The
-decoder's distance ring crosses shard seams, so each shard's entry
-ring is derived from the matches before it.
+shard's device (parallel/device_serialize.py), a shard the device path
+does not take going to the native serializer. The decoder's distance
+ring crosses shard seams, so each shard's entry ring is derived from
+the matches before it.
+
+Two routes, chosen by the JAX package's condition:
+- the mesh, where CUDA is asked for and at least n_shards > 1 cards are
+  visible: one shard per card, each carrying up to a window of the
+  input before it as history (its halo), so matches reach across the
+  seams (`_find_matches_mesh` at q<=9, the device matcher and K2;
+  ops.optimal.find_matches_optimal_sharded at q>=10, the DP);
+- otherwise the shards run one after another on `device`, each from its
+  own first byte (the device matcher at q<=9, the DP at q>=10, each
+  with the shard's absolute offset as its base).
+
+The mesh functions take a device list, one entry per shard. A list that
+names a device more than once queues those shards on it, which is how
+the tests (["cpu"] * n) and the one-card smoke (["cuda:0"] * n) run
+the code a machine with n cards runs.
 """
 
 import concurrent.futures as futures
@@ -21,8 +33,9 @@ import torch
 from ..enc import bitstream, matcher
 from ..enc.encoder import encode
 from ..format import constants as C
-from ..ops.matcher import find_matches_device
-from ..ops.optimal import find_matches_optimal
+from ..ops.matcher import (_bucket, _post_segment, _run_segment,
+                           find_matches_device)
+from ..ops.optimal import find_matches_optimal, find_matches_optimal_sharded
 from ..utils import trace
 from ..utils.device import resolve
 from . import serialize_shard_native
@@ -36,29 +49,37 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     """Compress with `n_shards` shards on `device` (None = "cuda";
     "cpu" runs the plain PyTorch versions of the kernels); returns a
     single RFC 7932 stream. `n_shards=None` means one shard per CUDA
-    device on the card, one on the CPU.
+    device on the card, one on the CPU. With CUDA and at least
+    n_shards > 1 cards visible, shard i runs on cuda:i (the mesh, see
+    the module docstring); otherwise the shards run one after another
+    on `device`.
+
+    `gather`: "host" joins the shards' bytes; "collective" gathers the
+    ordered payloads from the mesh's cards onto the first and reads them
+    back from there (without a mesh, it joins them too).
 
     `serializer`: "native" runs the native serializer per shard on host
     threads; "device" plans the symbol stream and packs the payload bits
-    on the card (trivial single-tree metablocks, slightly larger).
+    on each shard's device (trivial single-tree metablocks, slightly
+    larger).
 
     `dp`: the ops.optimal.DPConfig of the DP that parses each shard at
     q >= 10 (None = the default v3), in place of the JAX package's
     BROTLI_TPU_DP and the other variables of its DP; the JAX package
-    runs v1 off the TPU, which DPConfig(mode="v1") gives.
+    runs v1 off the TPU, which DPConfig(mode="v1") gives. The mesh runs
+    v3 whatever its mode, as the JAX mesh does
+    (ops.optimal.find_matches_optimal_sharded).
 
     An empty input, or one under n_shards * 64 KiB, is one stream of
     the port's one-shot encoder (enc/encoder.encode on `device`), as in
     the JAX package.
 
-    Not ported yet, and raising NotImplementedError: more CUDA devices
-    than one with n_shards > 1 (the mesh, ROADMAP M7), gather=
-    "collective" (M7/M10), and use_device=False, where the JAX package
-    takes its host vectorized matcher (M13, second slice)."""
+    Not ported yet, and raising NotImplementedError: use_device=False,
+    where the JAX package takes its host vectorized matcher (ROADMAP
+    M13, second slice)."""
     dev = resolve(device)
-    if gather != "host":
-        raise NotImplementedError(
-            "gather='collective' (ROADMAP M7/M10)")
+    if gather not in ("host", "collective"):
+        raise ValueError(f"unknown gather {gather!r}")
     if serializer not in ("native", "device"):
         raise ValueError(f"unknown serializer {serializer!r}")
     if not use_device:
@@ -66,31 +87,54 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
             "use_device=False takes the host vectorized matcher "
             "(ROADMAP M13, second slice)")
     raw = bytes(data)
-    arr = np.frombuffer(raw, dtype=np.uint8)
-    n = len(arr)
+    n = len(raw)
     if n_shards is None:
         n_shards = max(torch.cuda.device_count(), 1) \
             if dev.type == "cuda" else 1
     if n == 0 or n < n_shards * (1 << 16):
         return encode(raw, quality=quality, lgwin=lgwin, device=dev, dp=dp)
+    return _compress_sharded(raw, quality, lgwin, n_shards, dev,
+                             _mesh_devices(dev, n_shards), gather=gather,
+                             serializer=serializer, dp=dp)
 
-    bounds = np.linspace(0, n, n_shards + 1).astype(np.int64)
+
+def _mesh_devices(device, n_shards):
+    """The mesh's device list, [cuda:0, ..., cuda:n_shards-1], where the
+    JAX package takes its mesh (a CUDA device asked for, and at least
+    n_shards > 1 of them visible; its shard.py:183); else None."""
+    if device.type == "cuda" and torch.cuda.device_count() >= n_shards > 1:
+        return [torch.device("cuda", i) for i in range(n_shards)]
+    return None
+
+
+def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
+                      *, gather="host", serializer="native", dp=None):
+    """compress_sharded past its checks and routing: match finding (on
+    the mesh `mesh`, a device per shard, or with mesh=None one shard
+    after another on `device`), the split at metablock bounds, the entry
+    rings, serialization and the gather. The input holds at least
+    n_shards * 64 KiB."""
+    if mesh is not None and len(mesh) != n_shards:
+        raise ValueError(f"{len(mesh)} mesh devices for {n_shards} shards")
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    bounds = np.linspace(0, len(arr), n_shards + 1).astype(np.int64)
     max_distance = C.max_backward_distance(lgwin)
 
-    # Stage 1: match finding per shard on the card.
-    shard_matches = _find_matches_sharded(arr, bounds, max_distance,
-                                          quality, dev, dp)
-
-    # split matches at metablock boundaries first: splitting can drop
-    # tiny straddlers, and the ring derivation below must see exactly
-    # the commands that will be serialized
-    mb = 1 << min(22, C.MAX_INPUT_BLOCK_BITS)
-    for si in range(n_shards):
-        lo, hi = int(bounds[si]), int(bounds[si + 1])
-        boundaries = list(range(lo + mb, hi, mb)) + [hi]
-        m, lens, dists, flags = shard_matches[si]
-        shard_matches[si] = matcher.split_matches_at(
-            m + lo, lens, dists, flags, boundaries)
+    # Stage 1: match finding per shard.
+    if mesh is None:
+        shard_devs = [device] * n_shards
+        shard_matches = _find_matches_sharded(arr, bounds, max_distance,
+                                              quality, device, dp)
+    else:
+        shard_devs = [resolve(d) for d in mesh]
+        if quality >= 10:
+            shard_matches = find_matches_optimal_sharded(
+                arr, bounds, max_distance, shard_devs, dp=dp)
+        else:
+            shard_matches = _find_matches_mesh(arr, bounds, max_distance,
+                                               quality, shard_devs)
+    shard_matches = _split_at_metablocks(shard_matches, bounds,
+                                         range(n_shards))
 
     # the decoder's distance ring crosses shard seams: derive each
     # shard's entry ring from the previous shard's matches
@@ -102,7 +146,7 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
 
     # Stage 2: serialization per shard, each byte-aligned. The native
     # call releases the GIL, so shards serialize natively in parallel;
-    # on the card they go one after another
+    # on the devices they go one after another
     def serialize(si):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
         is_last = si == n_shards - 1
@@ -110,7 +154,7 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
             if serializer == "device":
                 out = serialize_shard_device(
                     arr, lo, hi, shard_matches[si], entry_rings[si], lgwin,
-                    si == 0, is_last, device=dev)
+                    si == 0, is_last, device=shard_devs[si])
                 if out is not None:
                     return out
             return serialize_shard_native(
@@ -120,19 +164,61 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     workers = 1 if serializer == "device" else min(n_shards, 8)
     with futures.ThreadPoolExecutor(max_workers=workers) as ex:
         parts = list(ex.map(serialize, range(n_shards)))
+    if gather == "collective":
+        return _gather_payloads_collective(parts, shard_devs)
     return b"".join(parts)
+
+
+def _split_at_metablocks(shard_matches, bounds, shards):
+    """Lift the matches of each shard in `shards` to absolute positions
+    and split them at its metablock bounds. Splitting can drop tiny
+    straddlers, so it comes before the entry rings, which must see
+    exactly the commands that will be serialized."""
+    mb = 1 << min(22, C.MAX_INPUT_BLOCK_BITS)
+    out = []
+    for si, (m, lens, dists, flags) in zip(shards, shard_matches):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        boundaries = list(range(lo + mb, hi, mb)) + [hi]
+        out.append(matcher.split_matches_at(m + lo, lens, dists, flags,
+                                            boundaries))
+    return out
+
+
+def _gather_payloads_collective(parts, devices):
+    """In-order gather of the serialized shard payloads from the shards'
+    devices onto the first (the JAX package's shard_map all_gather of
+    the sizes and the padded payloads, read back from its first
+    replica). With fewer
+    distinct devices than payloads there is no mesh to gather over and
+    the payloads are joined, as the JAX package does with fewer devices
+    than shards."""
+    if len(parts) == 1 or len(set(devices)) < len(parts):
+        return b"".join(parts)
+    return _all_gather_join(parts, devices)
+
+
+def _all_gather_join(parts, devices):
+    """Every payload row and size (each on its shard's device) copied
+    onto the first device, where the JAX package reads its replica;
+    read back there and joined."""
+    sizes = np.array([len(p) for p in parts], np.int64)
+    pad = np.zeros((len(parts), int(sizes.max())), np.uint8)
+    for i, p in enumerate(parts):
+        pad[i, :len(p)] = np.frombuffer(p, np.uint8)
+    rows = [torch.from_numpy(pad[i]).to(d) for i, d in enumerate(devices)]
+    lens = [torch.from_numpy(sizes[i:i + 1]).to(d)
+            for i, d in enumerate(devices)]
+    gp = torch.stack([r.to(devices[0]) for r in rows]).cpu().numpy()
+    gs = torch.cat([s.to(devices[0]) for s in lens]).cpu().numpy()
+    return b"".join(gp[i, :int(gs[i])].tobytes() for i in range(len(parts)))
 
 
 def _find_matches_sharded(arr, bounds, max_distance, quality, device,
                           dp=None):
     """Per-shard match finding, one shard after another on `device`.
     Match positions are shard-relative."""
-    n_shards = len(bounds) - 1
-    if device.type == "cuda" and torch.cuda.device_count() >= n_shards > 1:
-        raise NotImplementedError(
-            "one shard per CUDA device, the mesh (ROADMAP M7)")
     out = []
-    for si in range(n_shards):
+    for si in range(len(bounds) - 1):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
         shard = arr[lo:hi]
         if quality >= 10:
@@ -141,4 +227,47 @@ def _find_matches_sharded(arr, bounds, max_distance, quality, device,
         else:
             out.append(find_matches_device(shard, max_distance, quality,
                                            base=lo, device=device))
+    return out
+
+
+def _find_matches_mesh(arr, bounds, max_distance, quality, devices,
+                       shards=None):
+    """The mesh's match finding (the JAX package's shard_map over
+    match_block): shard shards[i] (default: every shard) on devices[i],
+    a torch.device.
+    Every shard pads to one common bucket holding its halo, up to a
+    window of the input before it, as window history (match_block's
+    `start`), so its matches reach across the seam; the decoder's
+    window is continuous over the stitched stream, which makes those
+    distances valid. Every shard is queued before any is read back (one
+    device-to-host read each, after its own event); the host then
+    extends cap-hit matches and probes the static dictionary, as
+    ops.matcher.find_matches_device does. Returns the shards'
+    (m, lens, dists, flags), m shard-relative."""
+    n_shards = len(bounds) - 1
+    if shards is None:
+        shards = range(n_shards)
+    sizes = [int(bounds[i + 1] - bounds[i]) for i in range(n_shards)]
+    # the bucket doubles to make room for the halo
+    bucket = _bucket(2 * max(sizes))
+    if bucket < max(sizes):  # shard exceeds the largest kernel bucket
+        raise ValueError("shard too large for the mesh matcher")
+    halos = [min(int(max_distance), int(bounds[i]), bucket - sizes[i])
+             for i in range(n_shards)]
+    ncand = 4 if quality >= 5 else 2
+    handles = []
+    for si, dev in zip(shards, devices):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        h = halos[si]
+        padded = np.zeros(bucket, np.uint8)
+        padded[:h + hi - lo] = arr[lo - h:hi]
+        with trace.stage("match.dispatch"):
+            handles.append(_run_segment(padded, max(h + hi - lo - 3, 0),
+                                        max_distance, ncand, h, dev))
+    out = []
+    for si, hd in zip(shards, handles):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        h = halos[si]
+        out.append(_post_segment(arr[lo - h:hi], hd, h, lo - h,
+                                 max_distance, quality >= 5))
     return out

@@ -62,7 +62,20 @@ Phases (any failure ends the run with a non-zero exit and no result):
      the same bytes on the card and the CPU for 512 KiB (v1, ring_scan,
      ring_scan + icell); level3, iterations=2, fast_first=False and one
      value of each cost knob on a 6 MiB prefix; v1 with two shards;
- 13. print the kernels line (launches on each kernel's path, errors,
+ 13. several devices and processes, on the one card: q5 on the mesh
+     (parallel.shard's mesh route through its internal function, 8
+     shards over [cuda:0] * 8, each with its halo; K2 once a shard; the
+     matches that reach before their shard) beside the one-card route
+     with 8 shards, the card's bytes against the CPU's on a 1 MiB
+     prefix; q11 on the mesh (ops.optimal.find_matches_optimal_sharded,
+     4 shards over [cuda:0] * 4, default DP and ring scan; K1, K3 or K8
+     and K4 once a shard a round, K2 once a shard after the first; peak
+     device memory), the card's bytes against the CPU's on 256 KiB;
+     gather="collective" (phase 6's bytes); compress_sharded_mp in 4
+     processes on the card through tools/mp_compress (gloo, a file://
+     store), every rank's stream equal to the single-process mesh over
+     [cuda:0] * 4;
+ 14. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
@@ -1043,6 +1056,173 @@ def dp_variants(corpus, rows, dev, card):
     return launches_v1, launches_ring
 
 
+def seam_matches(shard_matches):
+    """Matches (not dictionary words) whose source lies before the start
+    of their shard: the halo's work."""
+    return sum(int(((m < d) & (f < 2)).sum())
+               for m, _, d, f in shard_matches[1:])
+
+
+def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
+    """Phase 13: the mesh's code on one card (a device list naming it
+    once per shard), the collective gather, and the multi-process
+    encoder in four processes on the card. Returns nothing; exits on
+    any failure."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch.format import constants as C
+    from brotli_tpu_torch.ops import kernels, optimal as OPT
+    from brotli_tpu_torch.ops import matcher as PM
+    from brotli_tpu_torch.parallel import shard as PS
+    from brotli_tpu_torch.tools import mp_compress
+    from brotli_tpu_torch.utils import trace
+
+    maxd = C.max_backward_distance(22)
+    cpu = torch.device("cpu")
+    n = len(corpus)
+    arr = np.frombuffer(corpus, np.uint8)
+
+    # -- q5 on the mesh, 8 shards (as bench.py:140-146 shards)
+    print("[13] q5 on the mesh: 8 shards over [cuda:0] * 8", flush=True)
+    bounds = np.linspace(0, n, 9).astype(np.int64)
+    kernels.reset_launches()
+    mesh5, wall = timed(lambda: PS._compress_sharded(corpus, 5, 22, 8, dev,
+                                                     [dev] * 8))
+    k2 = kernels.LAUNCHES["chain_select"]
+    seams = seam_matches(PS._find_matches_mesh(arr, bounds, maxd, 5,
+                                               [dev] * 8))
+    print(f"    mesh: {n} B -> {len(mesh5)} B (ratio {n / len(mesh5):.4f}) "
+          f"in {wall:.3f} s = {n / wall / 1e6:.3f} MB/s [{card}]; K2 "
+          f"launches {k2}; matches reaching before their shard {seams}",
+          flush=True)
+    if bt.decompress(mesh5) != corpus or k2 != 8 or seams <= 0:
+        sys.exit("chip_smoke: the q5 mesh stream does not decode, K2 did "
+                 "not launch once a shard, or no match crossed a seam")
+    kernels.reset_launches()
+    one5, wall = timed(lambda: PS.compress_sharded(corpus, quality=5,
+                                                   n_shards=8))
+    k2 = kernels.LAUNCHES["chain_select"]
+    seams = seam_matches(PS._find_matches_sharded(arr, bounds, maxd, 5,
+                                                  dev))
+    print(f"    one card, n_shards=8: {n} B -> {len(one5)} B (ratio "
+          f"{n / len(one5):.4f}) in {wall:.3f} s = {n / wall / 1e6:.3f} "
+          f"MB/s [{card}]; K2 launches {k2}; matches reaching before "
+          f"their shard {seams} (each shard starts from its own first "
+          f"byte)", flush=True)
+    if bt.decompress(one5) != corpus or seams:
+        sys.exit("chip_smoke: the one-card 8-shard stream does not decode, "
+                 "or a match reached before its shard")
+    prefix = corpus[:1 << 20]
+    on_card = PS._compress_sharded(prefix, 5, 22, 8, dev, [dev] * 8)
+    t0 = time.perf_counter()
+    on_cpu = PS._compress_sharded(prefix, 5, 22, 8, cpu, [cpu] * 8)
+    print(f"    1 MiB prefix, 8 shards: cuda {len(on_card)} B, cpu "
+          f"{len(on_cpu)} B (cpu path {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if on_card != on_cpu or bt.decompress(on_card) != prefix:
+        sys.exit("chip_smoke: q5 mesh cuda and cpu streams differ")
+
+    # -- q11 on the mesh, 4 shards, the default DP and the ring scan
+    bounds = np.linspace(0, n, 5).astype(np.int64)
+    bufs = [int(bounds[i + 1] - bounds[i]) +
+            min(maxd, int(bounds[i]), OPT.SEG_V3) for i in range(4)]
+    rounds = max(-(-b // OPT.SEG_V3) for b in bufs)
+    adv = [PM.SEG_BYTES // 2 if b > PM.SEG_BYTES else PM.SEG_BYTES
+           for b in bufs]
+    want_k2 = sum(-(-b // a) for b, a in zip(bufs[1:], adv[1:]))
+    for label, cfg, scan in (("default", OPT.DPConfig(), "dp_scan"),
+                             ("ring_scan", OPT.DPConfig(ring_scan=True),
+                              "dp_scan_ring")):
+        print(f"[13] q11 on the mesh ({label}): 4 shards over [cuda:0] * 4",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        # the default run is traced: its stages (summed over the shards'
+        # threads) say where the wall goes
+        trace.enable(label == "default")
+        trace.reset()
+        out, wall = timed(lambda: PS._compress_sharded(
+            corpus, 11, 22, 4, dev, [dev] * 4, dp=cfg))
+        trace.enable(False)
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"    {n} B -> {len(out)} B (ratio {n / len(out):.4f}) in "
+              f"{wall:.3f} s = {n / wall / 1e6:.3f} MB/s [{card}]; peak "
+              f"device memory {peak / 2**30:.2f} GiB; launches {launched} "
+              f"({rounds} rounds of 4 shards; K2 expected {want_k2})",
+              flush=True)
+        if label == "default":
+            print("    stages of this (traced) run:")
+            print(trace.format_report(), flush=True)
+        if bt.decompress(out) != corpus:
+            sys.exit(f"chip_smoke: the q11 mesh ({label}) stream does not "
+                     f"decode")
+        if launched != {"suffix_min": 4 * rounds, scan: 4 * rounds,
+                        "dp_backtrack": 4 * rounds, "chain_select": want_k2}:
+            sys.exit(f"chip_smoke: the q11 mesh ({label}) launched "
+                     f"{launched}")
+    # the card against the CPU, on 256 KiB in 4 shards with 128 KiB DP
+    # segments in both (the real 2 MiB bucket would take minutes on the
+    # host): the last two shards' halos reach the segment cap, so there
+    # are two rounds, with a zero segment for the first two shards
+    prefix = corpus[:256 << 10]
+    seg = OPT.SEG_V3, OPT.BUCKETS_V3
+    OPT.SEG_V3, OPT.BUCKETS_V3 = 1 << 17, [1 << 17]
+    try:
+        for label, cfg in (("default", OPT.DPConfig()),
+                           ("ring_scan", OPT.DPConfig(ring_scan=True))):
+            on_card = PS._compress_sharded(prefix, 11, 22, 4, dev, [dev] * 4,
+                                           dp=cfg)
+            t0 = time.perf_counter()
+            on_cpu = PS._compress_sharded(prefix, 11, 22, 4, cpu, [cpu] * 4,
+                                          dp=cfg)
+            print(f"    {label}, 256 KiB prefix, 4 shards, 128 KiB "
+                  f"segments: cuda {len(on_card)} B, cpu {len(on_cpu)} B "
+                  f"(cpu path {time.perf_counter() - t0:.1f} s)", flush=True)
+            if on_card != on_cpu or bt.decompress(on_card) != prefix:
+                sys.exit(f"chip_smoke: q11 mesh ({label}) cuda and cpu "
+                         f"streams differ")
+    finally:
+        OPT.SEG_V3, OPT.BUCKETS_V3 = seg
+
+    # -- the collective gather: one card, so phase 6's bytes
+    coll = PS.compress_sharded(corpus, quality=5, gather="collective")
+    print(f"[13] gather='collective': {len(coll)} B, phase 6 "
+          f"{len(q5_out)} B", flush=True)
+    if coll != q5_out:
+        sys.exit("chip_smoke: the collective gather changed the stream")
+    # one card has no mesh to gather over, so the route above joins; the
+    # gather's tensor copies themselves, on the card, over the q5 mesh
+    # stream cut into 8 payloads of unequal length
+    cuts = np.sort(np.random.default_rng(13).choice(
+        np.arange(1, len(mesh5)), 7, replace=False))
+    parts = [mesh5[a:b] for a, b in zip([0, *cuts], [*cuts, len(mesh5)])]
+    gathered = PS._all_gather_join(parts, [dev] * 8)
+    print(f"    the gather's copies on the card, 8 payloads of "
+          f"{min(map(len, parts))}-{max(map(len, parts))} B: "
+          f"{'equal to' if gathered == mesh5 else 'NOT'} their join",
+          flush=True)
+    if gathered != mesh5:
+        sys.exit("chip_smoke: the gather's copies changed the payloads")
+
+    # -- four processes on the card, one shard each
+    print("[13] compress_sharded_mp: 4 processes, devices=[cuda:0] each",
+          flush=True)
+    ref = PS._compress_sharded(corpus, 5, 22, 4, dev, [dev] * 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = pathlib.Path(tmp) / "corpus"
+        src.write_bytes(corpus)
+        t0 = time.perf_counter()
+        mp_out = mp_compress.run(4, ["cuda:0"], src, pathlib.Path(tmp) / "out",
+                                 timeout=300)
+        wall = time.perf_counter() - t0
+    print(f"    {n} B -> {len(mp_out)} B in {wall:.3f} s (process start "
+          f"included) [{card}]; every rank the same stream; the "
+          f"single-process mesh over [cuda:0] * 4: {len(ref)} B", flush=True)
+    if mp_out != ref or bt.decompress(mp_out) != corpus:
+        sys.exit("chip_smoke: the four processes' stream differs from the "
+                 "single-process mesh, or does not decode")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -1359,7 +1539,10 @@ def main():
     # -- 12. the DP variants ----------------------------------------------
     launches_v1, launches_ring = dp_variants(corpus, rows, dev, card)
 
-    # -- 13. report ------------------------------------------------------
+    # -- 13. several devices and processes ------------------------------
+    mesh_and_processes(corpus, q5_out, card, dev)
+
+    # -- 14. report ------------------------------------------------------
     path_launches = dict(launches, chain_select=launches_q5["chain_select"],
                          bitpack=launches_ds["bitpack"],
                          lz_resolve=launches_dec["lz_resolve"],

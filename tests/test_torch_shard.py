@@ -6,8 +6,10 @@ package's, byte for byte, on the CPU.
       entry rings across shard seams and native serialization;
   (f) `compress_sharded` at q11 with two shards: the optimal-parse DP
       per shard, whose second shard seeds through the device matcher;
-  (g) the device rule and what is not ported yet (serializer="device"
-      is held to the JAX package in tests/test_torch_bitpack.py).
+  (g) the device rule, the routing to the mesh and the gather without
+      one, and what is not ported yet (serializer="device" is held to
+      the JAX package in tests/test_torch_bitpack.py, the mesh in
+      tests/test_torch_mesh.py).
 
 The JAX package takes its single-device device branch on the CPU with
 nothing in it edited: `backend_or_cpu` reports a GPU, the Pallas chain
@@ -139,21 +141,34 @@ def test_compress_sharded_needs_cuda(monkeypatch, data):
         PS.compress_sharded(data)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(gather="collective"), "M7/M10"),
-    (dict(use_device=False), "M13"),
-    (dict(size=100_000, n_shards=2, use_device=False), "M13"),
-    (dict(size=0, gather="collective"), "M7/M10")])
-def test_unported_options_raise(data, kwargs, item):
+@pytest.mark.parametrize("kwargs", [
+    dict(use_device=False), dict(size=100_000, n_shards=2,
+                                 use_device=False)])
+def test_unported_options_raise(data, kwargs):
     size = kwargs.pop("size", len(data))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="M13"):
         PS.compress_sharded(data[:size], device="cpu", **kwargs)
 
 
-def test_mesh_branch_raises(monkeypatch, data):
-    """More CUDA devices than one and n_shards > 1 is the mesh (M7); it
-    raises before touching a device."""
+@pytest.mark.parametrize("kwargs", [dict(), dict(size=0)])
+def test_collective_gather_joins(data, kwargs):
+    """gather="collective" without a mesh (one device; an empty input)
+    joins the shards' bytes, as the JAX package does with fewer devices
+    than shards (tests/test_torch_mesh.py holds the mesh's gather)."""
+    size = kwargs.pop("size", len(data))
+    out = PS.compress_sharded(data[:size], device="cpu", gather="collective")
+    assert out == PS.compress_sharded(data[:size], device="cpu")
+    assert bt.decompress(out) == data[:size]
+
+
+def test_mesh_branch_is_taken(monkeypatch, data):
+    """More CUDA devices than one and n_shards > 1 is the mesh: the
+    shards go to cuda:0 and cuda:1, decided before any device is
+    touched."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M7"):
-        PS.compress_sharded(data, n_shards=2)
+    seen = []
+    monkeypatch.setattr(PS, "_compress_sharded",
+                        lambda *a, **k: seen.append(a[5]) or b"")
+    PS.compress_sharded(data, n_shards=2)
+    assert seen == [[torch.device("cuda", 0), torch.device("cuda", 1)]]
