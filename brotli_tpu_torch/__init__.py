@@ -13,7 +13,9 @@ sharded encoders take one shard per card where several are visible
 Public API as brotli_tpu's (python/brotli.py of the reference):
 ``compress``, ``decompress``, ``decompress_concatenated``,
 ``Compressor``, ``Decompressor``, ``error``; ``DPConfig`` chooses the
-device DP's variant (``compress(..., dp=DPConfig(mode="v1"))``).
+device DP's variant (``compress(..., dp=DPConfig(mode="v1"))``). The
+Python decoder (``decompress(..., decoder="python")``) and serializer
+(``compress(..., encoder="device")``) are copies of brotli_tpu's.
 """
 
 from .api import (  # noqa: F401

@@ -6,14 +6,19 @@ single ``error`` exception type.
 
 ``compress`` routes as brotli_tpu does (enc/encoder.encode): q10/q11 on
 256 KiB or more runs the device DP on the card, everything else the
-port serves runs the native runtime. The streaming classes and the
-other decoders are the native runtime's; ``decompress(decoder="device")``
-resolves on the card. What only the JAX package's Python pipeline and
-decoder serve raises NotImplementedError (ROADMAP M13, second slice).
+port serves runs the native runtime; ``encoder="device"`` runs the
+device matcher or DP and the Python serializer. The streaming classes
+and the default decoders are the native runtime's;
+``decompress(decoder="device")`` resolves on the card, and
+``decoder="python"`` takes the Python decoder (dec/decoder.py,
+dec/stream.py). What only the JAX package's Python pipeline serves
+raises NotImplementedError (ROADMAP M13, second slice).
 """
 
 from . import native
+from .dec.decoder import Decoder, FormatError
 from .dec.device_decode import decompress_device
+from .dec.stream import StreamDecoder
 from .enc.encoder import (_SECOND_SLICE, StreamingEncoder, _serialized,
                           encode)
 
@@ -68,7 +73,10 @@ def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
     lgwin <= 24) on `device` (None = "cuda", raising without it; "cpu"
     runs the plain versions of the kernels) and the rest on the native
     encoder; "native" runs everything there; "device" only the card's
-    inputs. See enc/encoder.encode for what raises NotImplementedError.
+    inputs and, off them, the device matcher (q<=9, 64 KiB or more) or
+    the device DP (q10/q11 in modes 1 and 2) with the Python
+    serializer. See enc/encoder.encode for what raises
+    NotImplementedError.
 
     `dp` takes the place of the variables of the JAX package's device DP
     (BROTLI_TPU_DP, BROTLI_TPU_RING_SCAN, ...): a
@@ -94,15 +102,13 @@ def decompress(string, dictionary=None, large_window=False, *,
     brotli_tpu.decompress's. `dictionary`: raw LZ77 bytes (compound
     dictionary); `large_window`: accept the non-RFC large-window
     extension. `decoder` takes the place of the JAX package's
-    BROTLI_TPU_DECODER: "native" is the native decoder; "device" the
-    native symbol parse and the LZ resolve on `device` (None = "cuda",
-    raising without it; "cpu" runs the plain resolve), without a
-    dictionary. The Python decoder ("python"), serialized dictionaries
-    and the device decoder with a dictionary are not ported yet and
-    raise NotImplementedError."""
-    if decoder == "python":
-        raise NotImplementedError(f"the Python decoder ({_SECOND_SLICE})")
-    if decoder not in ("native", "device"):
+    BROTLI_TPU_DECODER: "native" is the native decoder; "python" the
+    Python decoder (dec/decoder.py); "device" the native symbol parse
+    and the LZ resolve on `device` (None = "cuda", raising without it;
+    "cpu" runs the plain resolve), without a dictionary. Serialized
+    dictionaries and the device decoder with a dictionary are not
+    ported yet and raise NotImplementedError."""
+    if decoder not in ("native", "device", "python"):
         raise ValueError(f"unknown decoder {decoder!r}")
     if _serialized(dictionary):
         raise NotImplementedError(
@@ -111,6 +117,15 @@ def decompress(string, dictionary=None, large_window=False, *,
         raise NotImplementedError(
             "decoder='device' with a dictionary: the JAX package runs "
             f"its Python decoder there ({_SECOND_SLICE})")
+    if decoder == "python":
+        try:
+            return Decoder(dictionary=dictionary,
+                           large_window=large_window).decompress(
+                               bytes(string))
+        except FormatError as e:
+            raise error(str(e)) from e
+        except Exception as e:  # truncated input etc.
+            raise error(f"decompression failed: {e}") from e
     try:
         if decoder == "device":
             return decompress_device(bytes(string), large_window,
@@ -172,32 +187,60 @@ class Compressor:
 
 
 class Decompressor:
-    """Streaming decompressor over the native chunked decoder, with
-    output back-pressure: ``output_buffer_limit`` caps the bytes one
-    ``process`` call returns (parity: python/_brotli.c Decompressor),
-    and the decoder suspends at the cap, mid-metablock or mid-copy, so
-    a small chunk that expands enormously is never materialized. While
-    output is pending, ``can_accept_more_data()`` is False and
-    ``process(b"")`` drains the next slice. A raw dictionary attaches
-    as compound data; a serialized one raises NotImplementedError."""
+    """Streaming decompressor with output back-pressure:
+    ``output_buffer_limit`` caps the bytes one ``process`` call returns
+    (parity: python/_brotli.c Decompressor). `decoder` takes the place
+    of the JAX package's BROTLI_TPU_DECODER: "native" is the native
+    chunked decoder, which suspends at the cap, mid-metablock or
+    mid-copy; "python" the Python streaming core (dec/stream.py), whose
+    decoder thread parks once undrained output reaches the cap, at one
+    emitted chunk's granularity. Either way a small chunk that expands
+    enormously is never materialized. While output is pending,
+    ``can_accept_more_data()`` is False and ``process(b"")`` drains the
+    next slice. A raw dictionary attaches as compound data; a
+    serialized one raises NotImplementedError."""
 
-    def __init__(self, dictionary=None):
+    def __init__(self, dictionary=None, *, decoder="native"):
+        if decoder not in ("native", "python"):
+            raise ValueError(f"unknown decoder {decoder!r}")
         if _serialized(dictionary):
             raise NotImplementedError(
                 f"serialized shared dictionaries ({_SECOND_SLICE})")
-        self._inc = native.StreamDecoder(compound=bytes(dictionary or b""))
+        self._native = decoder == "native"
+        if self._native:
+            self._inc = native.StreamDecoder(
+                compound=bytes(dictionary or b""))
+        else:
+            self._inc = StreamDecoder(
+                dictionary=bytes(dictionary) if dictionary else None)
+        self._pending = bytearray()
 
     def process(self, string=b"", output_buffer_limit=None) -> bytes:
         if string and not self.can_accept_more_data():
             raise error("cannot accept more data: drain pending output")
-        self._inc.set_output_limit(output_buffer_limit or 0)
+        if self._native:
+            self._inc.set_output_limit(output_buffer_limit or 0)
+            try:
+                return self._inc.feed(bytes(string))
+            except ValueError as e:
+                raise error(str(e)) from e
+        self._inc.set_output_limit(output_buffer_limit)
         try:
-            return self._inc.feed(bytes(string))
-        except ValueError as e:
+            self._pending += self._inc.feed(bytes(string))
+        except (FormatError, ValueError) as e:
             raise error(str(e)) from e
+        if output_buffer_limit is None:
+            out = bytes(self._pending)
+            self._pending.clear()
+            return out
+        out = bytes(self._pending[:output_buffer_limit])
+        del self._pending[:output_buffer_limit]
+        return out
 
     def is_finished(self) -> bool:
-        return self._inc.finished and not self._inc.pending_output
+        return (self._inc.finished and not self._pending
+                and not self._inc.pending_output)
 
     def can_accept_more_data(self) -> bool:
-        return not self._inc.finished and not self._inc.pending_output
+        return (not self._inc.finished and not self._pending
+                and not self._inc.pending_output)

@@ -111,9 +111,13 @@ def _process(data: bytes, args) -> bytes:
 
 
 def _verify_comment(data: bytes, comment: str) -> None:
-    raise NotImplementedError(
-        "-d/-t --comment reads metadata through the Python decoder "
-        "(ROADMAP M13, second slice)")
+    from .dec.decoder import Decoder
+    seen = []
+    d = Decoder()
+    d.metadata_callback = seen.append
+    d.decompress_prefix(data)
+    if comment.encode() not in seen:
+        raise ValueError("comment mismatch")
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,11 @@
-"""RFC 7932 bitstream pieces the device pipelines need: the stream
-header, metablock header, varlen and uncompressed-metablock writers (the
-whole-input stored fallback and the device serializer's host header),
-the command planner the host cost tables replay the seed parse through,
-the distance ring after a command sequence (the entry ring of a shard)
-and its push summary (the ring chain across processes), and the emitted
-code lengths of a tree. Copied from
-brotli_tpu.enc.bitstream.
+"""RFC 7932 bitstream assembly: stream header + metablock serialization
+(copy of brotli_tpu.enc.bitstream; base64 mode is not ported yet and
+raises NotImplementedError).
+
+Fully vectorized: command fields and literal runs are interleaved into a
+single (value, nbits) stream with cumsum/scatter array surgery
+(parity anchor: c/enc/brotli_bit_stream.c BrotliStoreMetaBlock and
+write_bits.h).
 """
 
 import numpy as np
@@ -13,6 +13,7 @@ import numpy as np
 from ..format import constants as C
 from ..format import prefix
 from ..format.bitio import BitWriter
+from .entropy import lengths_to_codes, package_merge, write_huffman_code
 
 MAX_MLEN = 1 << 24
 
@@ -76,6 +77,29 @@ def write_uncompressed_metablock(bw: BitWriter, data: bytes) -> None:
     bw.align_to_byte()
     arr = np.frombuffer(data, dtype=np.uint8)
     bw.write_arrays(arr.astype(np.int64), np.full(len(arr), 8, np.int64))
+
+
+def write_metadata_block(bw: BitWriter, payload: bytes) -> None:
+    """Emit a metadata block (RFC 9.2 MNIBBLES=0 path; parity:
+    BROTLI_OPERATION_EMIT_METADATA, c/enc/encode.c ProcessMetadata).
+    Content is opaque to decompression and byte-aligned."""
+    n = len(payload)
+    if n > (1 << 24):
+        raise ValueError("metadata too large")
+    bw.write(0, 1)   # ISLAST
+    bw.write(3, 2)   # MNIBBLES code -> metadata block
+    bw.write(0, 1)   # reserved
+    if n == 0:
+        bw.write(0, 2)   # MSKIPBYTES = 0
+    else:
+        nbytes = ((n - 1).bit_length() + 7) // 8 or 1
+        bw.write(nbytes, 2)
+        v = n - 1
+        for i in range(nbytes):
+            bw.write((v >> (8 * i)) & 0xFF, 8)
+    bw.align_to_byte()
+    for b in payload:
+        bw.write(b, 8)
 
 
 def write_last_empty(bw: BitWriter) -> None:
@@ -166,6 +190,39 @@ def encode_distances_vec(d: np.ndarray, npostfix: int, ndirect: int):
     extra_val = np.where(direct, 0, extra_val)
     nbits = np.where(direct, 0, nbits)
     return dcode, extra_val, nbits
+
+
+def choose_distance_params(expl_dists: np.ndarray):
+    """Search NPOSTFIX in 0..3 x NDIRECT in {0..15}<<npostfix for the
+    cheapest explicit-distance encoding (parity anchor: the q>=10
+    search in c/enc/metablock.c:301-334, full 64-config sweep instead
+    of its early-break walk). Cost = histogram entropy of the distance
+    codes + total extra bits. Returns (npostfix, ndirect)."""
+    if len(expl_dists) == 0:
+        return 0, 0
+    # strided subsample: the argmin over configs is stable well below
+    # full resolution, and the sweep cost is per-config linear
+    scale = 1.0
+    if len(expl_dists) > 32768:
+        step = len(expl_dists) // 32768 + 1
+        expl_dists = expl_dists[::step]
+        scale = float(step)
+    best = (0, 0)
+    best_cost = None
+    for npostfix in range(C.MAX_NPOSTFIX + 1):
+        for msb in range(16):
+            ndirect = msb << npostfix
+            dcode, _, dbits = encode_distances_vec(expl_dists, npostfix,
+                                                   ndirect)
+            freq = np.bincount(dcode)
+            nz = freq[freq > 0]
+            n = nz.sum()
+            entropy = float(n * np.log2(n) - (nz * np.log2(nz)).sum())
+            cost = (entropy + float(dbits.sum())) * scale + 10.0 * len(nz)
+            if best_cost is None or cost < best_cost - 1e-9:
+                best_cost = cost
+                best = (npostfix, ndirect)
+    return best
 
 
 def plan_commands(ins: np.ndarray, cpy: np.ndarray, dist: np.ndarray,
@@ -301,3 +358,486 @@ def _combine_codes(icode, ccode, implicit):
 def _emission(lengths):  # single-symbol alphabets decode with 0 bits
     return np.zeros_like(lengths) if np.count_nonzero(lengths) <= 1 \
         else lengths
+
+
+def write_context_map(bw: BitWriter, cmap: np.ndarray,
+                      ntrees: int) -> None:
+    """Serialize a context map (RFC 7.3): forward-MTF + zero-RLE +
+    prefix code, with the IMTF bit set."""
+    from .context_model import mtf_transform
+    write_varlen_uint8(bw, ntrees - 1)
+    if ntrees <= 1:
+        return
+    mtf = mtf_transform(cmap.astype(np.int64))
+    # zero-run lengths decide RLEMAX
+    syms = []  # (symbol, extra, extra_bits) with placeholder rlemax
+    i = 0
+    n = len(mtf)
+    max_v = 0
+    while i < n:
+        if mtf[i] != 0:
+            syms.append(("v", int(mtf[i]), 0, 0))
+            i += 1
+            continue
+        j = i
+        while j < n and mtf[j] == 0:
+            j += 1
+        ln = j - i
+        while ln > 0:
+            if ln == 1:
+                syms.append(("v", 0, 0, 0))
+                ln = 0
+            else:
+                v = min(ln.bit_length() - 1, 16)
+                extra = min(ln - (1 << v), (1 << v) - 1)
+                syms.append(("r", v, extra, v))
+                ln -= (1 << v) + extra
+                max_v = max(max_v, v)
+        i = j
+    rlemax = max_v  # 0 => no RLE
+    if rlemax:
+        bw.write(1, 1)
+        bw.write(rlemax - 1, 4)
+    else:
+        bw.write(0, 1)
+    alphabet = ntrees + rlemax
+    stream = []
+    for kind, a, extra, ebits in syms:
+        if kind == "v":
+            stream.append((a + rlemax if a else 0, 0, 0))
+        else:
+            stream.append((a, extra, ebits))
+    freq = np.bincount([s for s, _, _ in stream], minlength=alphabet)
+    lens = package_merge(freq, C.HUFFMAN_MAX_CODE_LENGTH)
+    write_huffman_code(bw, lens, alphabet)
+    lens_e = _emission(lens)
+    codes = lengths_to_codes(lens_e)
+    for s, extra, ebits in stream:
+        bw.write(int(codes[s]), int(lens_e[s]))
+        if ebits:
+            bw.write(extra, ebits)
+    bw.write(1, 1)  # IMTF applied
+
+
+def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
+                    mlen: int, cmds, is_last: bool, ring=None,
+                    quality: int = 1, context_mode=None,
+                    ctx_floor: int = 0, large: bool = False,
+                    b64_mask=None):
+    """Serialize one compressed metablock.
+
+    q < 5: single tree per alphabet ("StoreMetaBlockTrivial").
+    q >= 5: 2nd-order literal context modeling -- per-context histograms
+    clustered into trees with a context map.
+    q >= 9: literal block splitting; q >= 10 adds command/distance block
+    splitting and a distance context map (parity: BrotliStoreMetaBlock,
+    c/enc/brotli_bit_stream.c + metablock.c q>=10 path).
+    `ring`: 4-slot decoder distance ring entering the block (newest
+    first; None = stream start). Returns the updated ring. A base64
+    mask (`b64_mask`) raises NotImplementedError.
+    """
+    if b64_mask is not None:
+        raise NotImplementedError(
+            "base64 literal blocks (ROADMAP M13, second slice)")
+    from .quality import policy
+    pol = policy(quality)
+    ins, cpy, dist, dflag = _as_arrays(cmds)
+    plan, new_ring = plan_commands(ins, cpy, dist, ring, dflag)
+    # NPOSTFIX/NDIRECT search (q>=10, parity: metablock.c:301-334).
+    npostfix = ndirect = 0
+    if pol.dist_param_search and len(plan["expl_dists"]) >= 128:
+        npostfix, ndirect = choose_distance_params(plan["expl_dists"])
+        if (npostfix, ndirect) != (0, 0):
+            plan, new_ring = plan_commands(ins, cpy, dist, ring, dflag,
+                                           npostfix, ndirect)
+    ncmd = len(ins)
+    dist_alpha = C.distance_alphabet_size(
+        npostfix, ndirect,
+        C.LARGE_MAX_DISTANCE_BITS if large else C.MAX_DISTANCE_BITS)
+    cmd_syms = plan["cmd_syms"]
+    has = plan["has_dist"]
+    dsyms_sub = plan["dist_syms"][has]
+
+    # literals: gather runs [pos, pos+ins) for each command
+    starts = block_start + np.concatenate(
+        [[0], np.cumsum(ins + cpy)[:-1]]).astype(np.int64)
+    literals = _gather_runs(data, starts, plan["ins"])
+    lit_pos = _run_positions(starts, plan["ins"])
+    nlit = len(literals)
+
+    # --- block splitting per category (RFC 6)
+    from . import block_split
+    split = None
+    if pol.literal_split and nlit >= pol.min_split_literals:
+        split = block_split.split_symbols(literals,
+                                          C.NUM_LITERAL_SYMBOLS,
+                                          chunk=pol.split_chunk)
+    if split is not None:
+        run_types, block_lengths, type_of_lit = split
+        ntypes = int(run_types.max()) + 1
+    else:
+        ntypes = 1
+        type_of_lit = np.zeros(nlit, np.int64)
+
+    cmd_split = dist_split = None
+    if pol.cmd_dist_split and ncmd >= pol.min_split_cmds:
+        cmd_split = block_split.split_symbols(
+            cmd_syms, C.NUM_COMMAND_SYMBOLS, chunk=256, max_types=6)
+    if pol.cmd_dist_split and len(dsyms_sub) >= pol.min_split_cmds:
+        dist_split = block_split.split_symbols(
+            dsyms_sub, dist_alpha, chunk=256, max_types=4)
+    if cmd_split is not None:
+        crun_types, cblock_lengths, type_of_cmd = cmd_split
+        ntypes_i = int(crun_types.max()) + 1
+    else:
+        ntypes_i = 1
+        type_of_cmd = np.zeros(ncmd, np.int64)
+    if dist_split is not None:
+        drun_types, dblock_lengths, type_of_dsym = dist_split
+        ntypes_d = int(drun_types.max()) + 1
+    else:
+        ntypes_d = 1
+        type_of_dsym = np.zeros(len(dsyms_sub), np.int64)
+
+    # --- literal context modeling + clustering
+    use_context = pol.context_modeling and nlit >= pol.min_ctx_literals
+    from . import context_model as cm
+    if use_context:
+        mode = cm.choose_context_mode(data) if context_mode is None \
+            else context_mode
+        ctx_ids = cm.literal_context_ids(data, lit_pos, mode, ctx_floor)
+    else:
+        mode = 0
+        ctx_ids = np.zeros(nlit, np.int64)
+    group = (type_of_lit << C.LITERAL_CONTEXT_BITS) | ctx_ids
+    if use_context or ntypes > 1:
+        hists = cm.context_histograms(
+            literals, group, ntypes * C.NUM_LITERAL_CONTEXTS,
+            C.NUM_LITERAL_SYMBOLS)
+        if use_context:
+            assign, merged = cm.cluster_histograms(
+                hists, max_trees=pol.max_lit_trees,
+                table_cost_bits=180.0 if pol.optimal_parse else 60.0)
+        else:  # per-type trees, constant over contexts
+            assign = np.repeat(np.arange(ntypes, dtype=np.int64),
+                               C.NUM_LITERAL_CONTEXTS)
+            merged = np.stack([
+                hists[t * 64:(t + 1) * 64].sum(axis=0)
+                for t in range(ntypes)])
+        ntrees = len(merged)
+        if ntrees == 1 and ntypes == 1:
+            use_context = False
+    multi = use_context or ntypes > 1
+
+    # --- distance context map (4 copy-length contexts per block type)
+    dctx_tab = prefix.cmd_lut()["dist_context"].astype(np.int64)
+    dctx = dctx_tab[cmd_syms[has]]
+    dgroup = (type_of_dsym << C.DISTANCE_CONTEXT_BITS) | dctx
+    use_dist_map = pol.dist_context_map and \
+        len(dsyms_sub) >= pol.min_dist_syms
+    if use_dist_map or ntypes_d > 1:
+        dhists = cm.context_histograms(
+            dsyms_sub, dgroup, ntypes_d * 4, dist_alpha)
+        dassign, dmerged = cm.cluster_histograms(
+            dhists, max_trees=8, table_cost_bits=30.0)
+        n_dist_trees = len(dmerged)
+        if n_dist_trees == 1 and ntypes_d == 1:
+            use_dist_map = False
+    if not (use_dist_map or ntypes_d > 1):
+        dassign = np.zeros(4, np.int64)
+        dmerged = np.bincount(dsyms_sub, minlength=dist_alpha)[None, :] \
+            if len(dsyms_sub) else np.zeros((1, dist_alpha), np.int64)
+        n_dist_trees = 1
+
+    # --- header
+    write_metablock_header_mlen(bw, mlen, is_last)
+    write_varlen_uint8(bw, ntypes - 1)  # NBLTYPESL
+    if ntypes > 1:
+        sw_info = _plan_block_switches(run_types, block_lengths, ntypes)
+        _write_block_header(bw, sw_info, ntypes)
+    write_varlen_uint8(bw, ntypes_i - 1)  # NBLTYPESI
+    if ntypes_i > 1:
+        csw_info = _plan_block_switches(crun_types, cblock_lengths,
+                                        ntypes_i)
+        _write_block_header(bw, csw_info, ntypes_i)
+    write_varlen_uint8(bw, ntypes_d - 1)  # NBLTYPESD
+    if ntypes_d > 1:
+        dsw_info = _plan_block_switches(drun_types, dblock_lengths,
+                                        ntypes_d)
+        _write_block_header(bw, dsw_info, ntypes_d)
+    bw.write(npostfix, 2)  # NPOSTFIX
+    bw.write(ndirect >> npostfix, 4)  # NDIRECT (stored >> npostfix)
+
+    # --- command trees: one per command block type (no context map)
+    cmd_lens2d = np.zeros((ntypes_i, C.NUM_COMMAND_SYMBOLS), np.int64)
+    for t in range(ntypes_i):
+        freq = np.bincount(cmd_syms[type_of_cmd == t],
+                           minlength=C.NUM_COMMAND_SYMBOLS)
+        cmd_lens2d[t] = package_merge(freq, C.HUFFMAN_MAX_CODE_LENGTH)
+    dist_lens2d = np.zeros((n_dist_trees, dist_alpha), np.int64)
+    for t in range(n_dist_trees):
+        dist_lens2d[t] = package_merge(dmerged[t],
+                                       C.HUFFMAN_MAX_CODE_LENGTH)
+
+    if not multi:
+        bw.write(0, 2)  # literal context mode (irrelevant: 1 tree)
+        write_varlen_uint8(bw, 0)  # literal context map: 1 tree
+    else:
+        for _ in range(ntypes):
+            bw.write(mode, 2)  # context mode per literal block type
+        write_context_map(bw, assign, ntrees)  # literal context map
+    if n_dist_trees > 1:
+        write_context_map(bw, dassign, n_dist_trees)
+    else:
+        write_varlen_uint8(bw, 0)  # distance context map: 1 tree
+
+    if not multi:
+        lit_freq = np.bincount(literals, minlength=C.NUM_LITERAL_SYMBOLS)
+        lit_len = package_merge(lit_freq, C.HUFFMAN_MAX_CODE_LENGTH)
+        write_huffman_code(bw, lit_len, C.NUM_LITERAL_SYMBOLS)
+        lit_len = _emission(lit_len)
+        lit_codes = lengths_to_codes(lit_len).astype(np.int64)
+        lit_vals = lit_codes[literals]
+        lit_bits = lit_len[literals]
+    else:
+        lit_lens2d = np.zeros((ntrees, C.NUM_LITERAL_SYMBOLS), np.int32)
+        lit_codes2d = np.zeros_like(lit_lens2d, dtype=np.int64)
+        for t in range(ntrees):
+            true_len = package_merge(merged[t], C.HUFFMAN_MAX_CODE_LENGTH)
+            write_huffman_code(bw, true_len, C.NUM_LITERAL_SYMBOLS)
+            e = _emission(true_len)
+            lit_lens2d[t] = e
+            lit_codes2d[t] = lengths_to_codes(e).astype(np.int64)
+        tree_of_lit = assign[group]
+        lit_vals = lit_codes2d[tree_of_lit, literals]
+        lit_bits = lit_lens2d[tree_of_lit, literals].astype(np.int64)
+    for t in range(ntypes_i):
+        write_huffman_code(bw, cmd_lens2d[t], C.NUM_COMMAND_SYMBOLS)
+    for t in range(n_dist_trees):
+        write_huffman_code(bw, dist_lens2d[t], dist_alpha)
+
+    if ntypes > 1:  # embed switch slots before the switching literal
+        lit_vals, lit_bits = _with_switch_slots(
+            lit_vals, lit_bits, sw_info)
+        lanes = 4
+    else:
+        lanes = 1
+
+    # per-command symbol values under the selected trees
+    cmd_lens_e = np.stack([_emission(cmd_lens2d[t])
+                           for t in range(ntypes_i)])
+    cmd_codes_e = np.stack([lengths_to_codes(cmd_lens_e[t])
+                            for t in range(ntypes_i)]).astype(np.int64)
+    cmd_vals = cmd_codes_e[type_of_cmd, cmd_syms]
+    cmd_bits = cmd_lens_e[type_of_cmd, cmd_syms]
+    dist_lens_e = np.stack([_emission(dist_lens2d[t])
+                            for t in range(n_dist_trees)])
+    dist_codes_e = np.stack([lengths_to_codes(dist_lens_e[t])
+                             for t in range(n_dist_trees)]).astype(
+        np.int64)
+    tree_of_dsym = dassign[dgroup]
+    dist_vals = np.zeros(ncmd, np.int64)
+    dist_bits = np.zeros(ncmd, np.int64)
+    hidx = np.flatnonzero(has)
+    dist_vals[hidx] = dist_codes_e[tree_of_dsym, dsyms_sub]
+    dist_bits[hidx] = dist_lens_e[tree_of_dsym, dsyms_sub]
+
+    # block-switch slots for command / distance streams
+    cmd_sw = dist_sw = None
+    if ntypes_i > 1:
+        at = np.cumsum(csw_info["block_lengths"])[:-1]
+        cmd_sw = (at, csw_info)
+    if ntypes_d > 1:
+        at = hidx[np.cumsum(dsw_info["block_lengths"])[:-1]]
+        dist_sw = (at, dsw_info)
+
+    values, nbits = _interleave_symbols(
+        plan, (lit_vals, lit_bits), lanes, (cmd_vals, cmd_bits),
+        (dist_vals, dist_bits), cmd_sw, dist_sw)
+    bw.write_arrays(values, nbits)
+    return new_ring
+
+
+def _plan_block_switches(run_types, block_lengths, ntypes):
+    """Resolve block-switch symbols: type codes ride a 2-entry ring
+    (0 = previous, 1 = current + 1, else type + 2; RFC 6)."""
+    tsyms = []
+    rb = [1, 0]
+    for t in run_types[1:]:
+        t = int(t)
+        if t == rb[0]:
+            tsyms.append(0)
+        elif t == (rb[1] + 1) % ntypes:
+            tsyms.append(1)
+        else:
+            tsyms.append(t + 2)
+        rb = [rb[1], t]
+    tsyms = np.array(tsyms, np.int64)
+    ccode, cextra, cbits = (np.array(v) for v in zip(
+        *[prefix.encode_value(int(L), prefix.BLOCK_COUNT_BASE,
+                              prefix.BLOCK_COUNT_EXTRA)
+          for L in block_lengths]))
+    # trees over type symbols (switches only) and count codes (all)
+    type_freq = np.bincount(tsyms, minlength=ntypes + 2) if len(tsyms) \
+        else np.zeros(ntypes + 2, np.int64)
+    cnt_freq = np.bincount(ccode, minlength=C.NUM_BLOCK_LEN_SYMBOLS)
+    type_len = package_merge(type_freq, C.HUFFMAN_MAX_CODE_LENGTH)
+    cnt_len = package_merge(cnt_freq, C.HUFFMAN_MAX_CODE_LENGTH)
+    return {
+        "tsyms": tsyms, "ccode": ccode, "cextra": cextra, "cbits": cbits,
+        "block_lengths": np.asarray(block_lengths, np.int64),
+        "type_len": type_len, "cnt_len": cnt_len,
+        "type_codes": lengths_to_codes(_emission(type_len)),
+        "type_bits": _emission(type_len),
+        "cnt_codes": lengths_to_codes(_emission(cnt_len)),
+        "cnt_bits": _emission(cnt_len),
+    }
+
+
+def _write_block_header(bw, sw, ntypes):
+    """Block-type tree, block-count tree, first block length (RFC 9.2)."""
+    write_huffman_code(bw, sw["type_len"], ntypes + 2)
+    write_huffman_code(bw, sw["cnt_len"], C.NUM_BLOCK_LEN_SYMBOLS)
+    c0 = int(sw["ccode"][0])
+    bw.write(int(sw["cnt_codes"][c0]), int(sw["cnt_bits"][c0]))
+    if sw["cbits"][0]:
+        bw.write(int(sw["cextra"][0]), int(sw["cbits"][0]))
+
+
+def _with_switch_slots(lit_vals, lit_bits, sw):
+    """Expand per-literal streams to 4 lanes: [switch type, switch count,
+    switch count extra, literal]. Switches fire before the first literal
+    of each block after the first."""
+    nlit = len(lit_vals)
+    v = np.zeros((nlit, 4), np.int64)
+    b = np.zeros((nlit, 4), np.int64)
+    v[:, 3] = lit_vals
+    b[:, 3] = lit_bits
+    at = np.cumsum(sw["block_lengths"])[:-1]
+    tsyms = sw["tsyms"]
+    v[at, 0] = sw["type_codes"][tsyms]
+    b[at, 0] = sw["type_bits"][tsyms]
+    cc = sw["ccode"][1:]
+    v[at, 1] = sw["cnt_codes"][cc]
+    b[at, 1] = sw["cnt_bits"][cc]
+    v[at, 2] = sw["cextra"][1:]
+    b[at, 2] = sw["cbits"][1:]
+    return v, b
+
+
+# backwards-compatible alias used by tests/tools
+def _run_positions(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Absolute position of every literal (parallel to _gather_runs)."""
+    total = int(lengths.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    ends = np.cumsum(lengths)
+    out_start = ends - lengths
+    idx = np.arange(total, dtype=np.int64)
+    run_id = np.searchsorted(ends, idx, side="right")
+    return starts[run_id] + (idx - out_start[run_id])
+
+
+def _as_arrays(cmds):
+    if isinstance(cmds, tuple) and isinstance(cmds[0], np.ndarray):
+        if len(cmds) == 4:
+            return cmds
+        return (*cmds, np.zeros(len(cmds[0]), np.int64))
+    if len(cmds) == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z
+    a = np.asarray(cmds, dtype=np.int64)
+    if a.shape[1] == 3:
+        return a[:, 0], a[:, 1], a[:, 2], np.zeros(len(a), np.int64)
+    return a[:, 0], a[:, 1], a[:, 2], a[:, 3]
+
+
+def _gather_runs(data: np.ndarray, starts: np.ndarray,
+                 lengths: np.ndarray) -> np.ndarray:
+    """Concatenate data[starts[k]:starts[k]+lengths[k]] for all k."""
+    total = int(lengths.sum())
+    if total == 0:
+        return np.zeros(0, np.uint8)
+    # index arithmetic: for each output slot, its source position
+    ends = np.cumsum(lengths)
+    out_start = ends - lengths
+    idx = np.arange(total, dtype=np.int64)
+    run_id = np.searchsorted(ends, idx, side="right")
+    src = starts[run_id] + (idx - out_start[run_id])
+    return data[src]
+
+
+def _interleave_symbols(plan, lit_stream, lanes, cmd_stream, dist_stream,
+                        cmd_sw=None, dist_sw=None):
+    """Build the metablock body (value, nbits) stream in decode order:
+    per command: [cmd block switch] cmd sym, insert extra, copy extra,
+    literals (each with optional literal-switch lanes), [dist block
+    switch] dist sym, dist extra. cmd/dist streams come per-command,
+    already tree-selected; zero-bit slots vanish in the bit writer."""
+    lit_vals_in, lit_bits_in = lit_stream
+    ins = plan["ins"]
+    n = len(ins)
+    nlit = lit_vals_in.shape[0]
+    total = n * 11 + nlit * lanes
+    values = np.zeros(total, dtype=np.int64)
+    nbits = np.zeros(total, dtype=np.int64)
+    # record: 3 cmd-switch slots + 3 fixed + ins*lanes + 3 dist-switch
+    # slots + 2 dist slots
+    rec_len = 11 + ins * lanes
+    rec_start = np.concatenate([[0], np.cumsum(rec_len)[:-1]]).astype(
+        np.int64)
+    if cmd_sw is not None:
+        at, sw = cmd_sw
+        slots = rec_start[at]
+        tsyms = sw["tsyms"]
+        values[slots] = sw["type_codes"][tsyms]
+        nbits[slots] = sw["type_bits"][tsyms]
+        cc = sw["ccode"][1:]
+        values[slots + 1] = sw["cnt_codes"][cc]
+        nbits[slots + 1] = sw["cnt_bits"][cc]
+        values[slots + 2] = sw["cextra"][1:]
+        nbits[slots + 2] = sw["cbits"][1:]
+    cmd_vals, cmd_bits = cmd_stream
+    values[rec_start + 3] = cmd_vals
+    nbits[rec_start + 3] = cmd_bits
+    iv, ib = plan["insert_extras"]
+    values[rec_start + 4] = iv
+    nbits[rec_start + 4] = ib
+    cv, cb = plan["copy_extras"]
+    values[rec_start + 5] = cv
+    nbits[rec_start + 5] = cb
+    # literals (each `lanes` slots wide) at rec_start + 6 + k*lanes
+    if nlit:
+        ends = np.cumsum(ins)
+        out_start = ends - ins
+        idx = np.arange(nlit, dtype=np.int64)
+        run_id = np.searchsorted(ends, idx, side="right")
+        slot0 = rec_start[run_id] + 6 + (idx - out_start[run_id]) * lanes
+        if lanes == 1:
+            values[slot0] = lit_vals_in
+            nbits[slot0] = lit_bits_in
+        else:
+            for c in range(lanes):
+                values[slot0 + c] = lit_vals_in[:, c]
+                nbits[slot0 + c] = lit_bits_in[:, c]
+    # distances at record end
+    dslot = rec_start + 6 + ins * lanes
+    if dist_sw is not None:
+        at, sw = dist_sw
+        slots = dslot[at]
+        tsyms = sw["tsyms"]
+        values[slots] = sw["type_codes"][tsyms]
+        nbits[slots] = sw["type_bits"][tsyms]
+        cc = sw["ccode"][1:]
+        values[slots + 1] = sw["cnt_codes"][cc]
+        nbits[slots + 1] = sw["cnt_bits"][cc]
+        values[slots + 2] = sw["cextra"][1:]
+        nbits[slots + 2] = sw["cbits"][1:]
+    dist_vals, dist_bits = dist_stream
+    has = plan["has_dist"]
+    values[dslot + 3] = np.where(has, dist_vals, 0)
+    nbits[dslot + 3] = np.where(has, dist_bits, 0)
+    dv, db = plan["dist_extras"]
+    values[dslot + 4] = np.where(has, dv, 0)
+    nbits[dslot + 4] = np.where(has, db, 0)
+    return values, nbits

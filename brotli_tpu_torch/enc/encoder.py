@@ -1,8 +1,10 @@
 """Encoder routing (counterpart of brotli_tpu.enc.encoder.encode and
-StreamingEncoder, their native halves): the q10/q11 device encode, where
-the optimal-parse DP streams finished metablock spans into a native
-serialization worker, and the native one-shot and streaming encoders
-for everything else the port serves.
+StreamingEncoder): the q10/q11 device encode, where the optimal-parse DP
+streams finished metablock spans into a native serialization worker;
+encoder="device" off that route, the device matcher (q<=9) or the
+device DP (q10/q11 in modes 1 and 2) with the Python serializer
+(`_write_blocks` -> bitstream.store_metablock); and the native one-shot
+and streaming encoders for everything else the port serves.
 """
 
 import queue
@@ -13,13 +15,16 @@ import numpy as np
 from .. import native
 from ..format import constants as C
 from ..format.bitio import BitWriter
+from ..ops.matcher import find_matches_device
 from ..ops.optimal import find_matches_optimal
 from ..utils import trace
 from ..utils.device import resolve
-from . import bitstream
+from . import bitstream, matcher
+from .quality import policy
 
 _DEFAULT_MB_BITS = 22  # metablock size (lgblock); <= 24
 MIN_DEVICE_INPUT = 1 << 18  # the JAX package's device-encode threshold
+_VECTOR_THRESHOLD = 1 << 16  # the JAX package's device-matcher threshold
 ENCODERS = ("auto", "native", "device", "python")
 _SECOND_SLICE = "ROADMAP M13, second slice"
 
@@ -55,6 +60,10 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
       lgwin <= 24: the device DP on `device` ("auto", "device"; None
       means the card and raises without one), the native q10/q11 tier
       with "native";
+    - encoder="device" on any other input with no dictionary and no
+      base64, lgwin <= 24: q<=9 on 64 KiB or more runs the device
+      matcher (K2) and q10/q11 on 256 KiB or more (modes 1 and 2) the
+      device DP, both on `device`, then the Python serializer;
     - any other input in mode 0, 1 or 2 with no dictionary and no
       base64: the native one-shot encoder ("auto", "native").
 
@@ -66,7 +75,8 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
     JAX package's Python pipeline serves raises NotImplementedError:
     serialized dictionaries, base64 mode, a dictionary with mode 1 or
     2, a raw dictionary beyond lgwin 24, `dictionary=b""`,
-    encoder="python", and encoder="device" off the DP's inputs."""
+    encoder="python", and encoder="device" under 64 KiB (q<=9) or
+    256 KiB (q10/q11), beyond lgwin 24 or with a dictionary."""
     if encoder not in ENCODERS:
         raise ValueError(f"unknown encoder {encoder!r}")
     if encoder == "python":
@@ -86,10 +96,8 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
             f"serialized shared dictionaries ({_SECOND_SLICE})")
     plain = (mode == 0 and not base64_mode
              and lgwin <= C.MAX_WINDOW_BITS)
-    if dictionary is not None and len(dictionary) > 0 and plain:
-        if encoder == "device":
-            raise NotImplementedError(
-                f"encoder='device' with a dictionary ({_SECOND_SLICE})")
+    if (dictionary is not None and len(dictionary) > 0 and plain
+            and encoder != "device"):
         return native.encode_with_dict(raw, quality, lgwin,
                                        bytes(dictionary))
     if (dictionary is None and plain and quality >= 10
@@ -102,15 +110,84 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
             return _store_uncompressed(arr, lgwin)
         return out
     if encoder == "device":
-        raise NotImplementedError(
-            "encoder='device' below q10, under 256 KiB, in modes 1/2 or "
-            f"beyond lgwin 24: the Python pipeline ({_SECOND_SLICE})")
+        return _encode_device(raw, quality, lgwin, lgblock, mode,
+                              dictionary, base64_mode, resolve(device), dp)
     if dictionary is None and mode in (0, 1, 2) and not base64_mode:
         return native.encode(raw, quality, lgwin, mode=mode)
     raise NotImplementedError(
         "base64 mode, a dictionary with mode 1 or 2, a raw dictionary "
         "beyond lgwin 24 or an empty one: the Python pipeline "
         f"({_SECOND_SLICE})")
+
+
+def find_matches(arr, max_distance, quality, device=None, dp=None):
+    """The device match finders of brotli_tpu.enc.encoder.find_matches
+    (its quality dispatch on a device backend): the device DP at
+    q10/q11 on 256 KiB or more, the device matcher at q<=9 on 64 KiB or
+    more, both on `device`. The host matchers and the host DP it takes
+    elsewhere raise NotImplementedError."""
+    if policy(quality).optimal_parse:
+        if len(arr) >= MIN_DEVICE_INPUT:
+            return find_matches_optimal(arr, max_distance, device=device,
+                                        dp=dp)
+        raise NotImplementedError(
+            f"q10/q11 under 256 KiB: the host DP ({_SECOND_SLICE})")
+    if len(arr) >= _VECTOR_THRESHOLD:
+        return find_matches_device(arr, max_distance, quality,
+                                   device=device)
+    raise NotImplementedError(
+        f"under 64 KiB: the greedy host matcher ({_SECOND_SLICE})")
+
+
+def _encode_device(raw, quality, lgwin, lgblock, mode, dictionary,
+                   base64_mode, device, dp):
+    """The JAX package's pipeline under BROTLI_TPU_ENCODER=device on a
+    device backend, past its q10/q11 mode-0 streamed route: the device
+    match finder over the whole input, then `_write_blocks` with the
+    mode's context model, and the uncompressed fallback."""
+    if base64_mode:
+        raise NotImplementedError(f"base64 mode ({_SECOND_SLICE})")
+    if dictionary is not None:
+        raise NotImplementedError(
+            f"encoder='device' with a dictionary ({_SECOND_SLICE})")
+    if lgwin > C.MAX_WINDOW_BITS:
+        raise NotImplementedError(
+            f"encoder='device' beyond lgwin 24 ({_SECOND_SLICE})")
+    n = len(raw)
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    with trace.stage("match-find"):
+        matches = find_matches(arr, C.max_backward_distance(lgwin),
+                               quality, device, dp)
+    bw = BitWriter()
+    bitstream.write_stream_header(bw, lgwin)
+    # mode hint (parity: BrotliEncoderMode + ChooseContextMode): TEXT
+    # forces the UTF8 context model, FONT the signed-byte model
+    _write_blocks(bw, arr, 0, n, matches, lgblock, is_last=True,
+                  quality=quality, context_mode={1: 2, 2: 3}.get(mode))
+    bw.align_to_byte()
+    out = bw.getvalue()
+    if len(out) >= n + 4:
+        return _store_uncompressed(arr, lgwin)
+    return out
+
+
+def _write_blocks(bw, arr, lo, hi, matches, lgblock, is_last,
+                  ring=None, quality=1, context_mode=None):
+    """Serialize region [lo, hi) as metablocks; returns the distance
+    ring state after the last block."""
+    mb_size = 1 << lgblock
+    boundaries = list(range(lo + mb_size, hi, mb_size)) + [hi]
+    m, lens, dists, flags = matcher.split_matches_at(*matches, boundaries)
+    pos = lo
+    for bi, b in enumerate(boundaries):
+        block_last = is_last and bi == len(boundaries) - 1
+        cmds = matcher.matches_to_commands(m, lens, dists, flags, pos, b)
+        with trace.stage("serialize"):
+            ring = bitstream.store_metablock(
+                bw, arr, pos, b - pos, cmds, block_last, ring,
+                quality=quality, context_mode=context_mode)
+        pos = b
+    return ring
 
 
 def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,

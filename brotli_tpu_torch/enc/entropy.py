@@ -1,6 +1,5 @@
 """Entropy coding: optimal length-limited prefix codes + RFC 3.4/3.5
-code-description serialization (trimmed copy of brotli_tpu.enc.entropy:
-what the device serializer's host header needs).
+code-description serialization (copy of brotli_tpu.enc.entropy).
 
 Code lengths come from the package-merge algorithm, which is optimal
 under the depth limit.
@@ -205,3 +204,8 @@ def _write_complex(bw, lengths):
             bw.write(int(cl_codes[s]), int(cl_lengths[s]))
         if ebits:
             bw.write(extra, ebits)
+
+
+def code_bit_cost(freqs, lengths) -> int:
+    return int(np.sum(np.asarray(freqs, np.int64) *
+                      np.asarray(lengths, np.int64)))

@@ -4,7 +4,8 @@ The reader keeps a 64-bit-ish accumulator over a NumPy view of the input;
 the writer accumulates (value, nbits) pairs and packs them in one
 vectorized pass (exclusive scan of the lengths + scatter-OR into an
 int64 word stream; parity anchors: c/dec/bit_reader.h,
-c/enc/write_bits.h).
+c/enc/write_bits.h). A copy of brotli_tpu.format.bitio, with
+`BitReader.read_symbol` added for the Python decoder.
 """
 
 import numpy as np
@@ -30,6 +31,12 @@ class BitReader:
         end = min(byte0 + ((n + shift + 7) >> 3), len(self.data))
         window = int.from_bytes(self.data[byte0:end].tobytes(), "little")
         return (window >> shift) & ((1 << n) - 1)
+
+    def read_symbol(self, table) -> int:
+        """One symbol of a prefix code (format/huffman.DecodeTable)."""
+        sym, used = table.decode(self.peek(table.max_len))
+        self.skip(used)
+        return sym
 
     def take(self, n: int) -> int:
         if self.bitpos + n > self.nbits:

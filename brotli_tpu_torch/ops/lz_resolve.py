@@ -87,3 +87,16 @@ def resolve(lits: bytes, nlit, ncopy, dist, max_depth=None,
         if int(err.item()):
             raise ValueError("lz_resolve: a copy reaches before the output")
     return out.numpy().tobytes()
+
+
+def copy_list(nlit, ncopy, dist):
+    """The canonical form of a command list: (output position, length,
+    distance) of every copy, int64 (k, 3). Parses that split literal
+    runs differently (the native parse rolls literals and dictionary
+    words into the next copy, the Python deferred parse emits them as
+    literal-only commands) describe the same copy graph exactly when
+    their literal streams and copy lists are equal."""
+    nlit, ncopy, dist = (np.asarray(a, np.int64) for a in (nlit, ncopy, dist))
+    pos = np.cumsum(nlit + ncopy) - ncopy
+    keep = ncopy > 0
+    return np.stack([pos[keep], ncopy[keep], dist[keep]], axis=1)

@@ -3,10 +3,12 @@
 The input splits into shards; each is match-found on a device and
 serialized as whole byte-aligned metablock sequences that concatenate
 into ONE valid stream (non-last shards end with an empty metadata
-block): natively on host threads, or with serializer="device" on the
-shard's device (parallel/device_serialize.py), a shard the device path
-does not take going to the native serializer. The decoder's distance
-ring crosses shard seams, so each shard's entry ring is derived from
+block): natively on host threads, with serializer="python" by the
+Python serializer (bitstream.store_metablock), or with
+serializer="device" on the shard's device
+(parallel/device_serialize.py), a shard the device path does not take
+going to the native serializer. The decoder's distance ring crosses
+shard seams, so each shard's entry ring is derived from
 the matches before it.
 
 Two routes, chosen by the JAX package's condition:
@@ -31,14 +33,14 @@ import numpy as np
 import torch
 
 from ..enc import bitstream, matcher
-from ..enc.encoder import encode
+from ..enc.encoder import _DEFAULT_MB_BITS, encode
 from ..format import constants as C
 from ..ops.matcher import (_bucket, _post_segment, _run_segment,
                            find_matches_device)
 from ..ops.optimal import find_matches_optimal, find_matches_optimal_sharded
 from ..utils import trace
 from ..utils.device import resolve
-from . import serialize_shard_native
+from . import serialize_shard_native, serialize_shard_python
 from .device_serialize import serialize_shard_device
 
 
@@ -59,9 +61,10 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     back from there (without a mesh, it joins them too).
 
     `serializer`: "native" runs the native serializer per shard on host
-    threads; "device" plans the symbol stream and packs the payload bits
-    on each shard's device (trivial single-tree metablocks, slightly
-    larger).
+    threads; "python" the Python serializer (bitstream.store_metablock,
+    the JAX package's BROTLI_TPU_SERIALIZER=python); "device" plans the
+    symbol stream and packs the payload bits on each shard's device
+    (trivial single-tree metablocks, slightly larger).
 
     `dp`: the ops.optimal.DPConfig of the DP that parses each shard at
     q >= 10 (None = the default v3), in place of the JAX package's
@@ -80,7 +83,7 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     dev = resolve(device)
     if gather not in ("host", "collective"):
         raise ValueError(f"unknown gather {gather!r}")
-    if serializer not in ("native", "device"):
+    if serializer not in ("native", "device", "python"):
         raise ValueError(f"unknown serializer {serializer!r}")
     if not use_device:
         raise NotImplementedError(
@@ -150,6 +153,11 @@ def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
     def serialize(si):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
         is_last = si == n_shards - 1
+        if serializer == "python":
+            # _write_blocks times each metablock under "serialize"
+            return serialize_shard_python(
+                arr, lo, hi, shard_matches[si], quality, lgwin,
+                entry_rings[si], si == 0, is_last)
         with trace.stage("serialize"):
             if serializer == "device":
                 out = serialize_shard_device(
@@ -174,7 +182,7 @@ def _split_at_metablocks(shard_matches, bounds, shards):
     and split them at its metablock bounds. Splitting can drop tiny
     straddlers, so it comes before the entry rings, which must see
     exactly the commands that will be serialized."""
-    mb = 1 << min(22, C.MAX_INPUT_BLOCK_BITS)
+    mb = 1 << _DEFAULT_MB_BITS
     out = []
     for si, (m, lens, dists, flags) in zip(shards, shard_matches):
         lo, hi = int(bounds[si]), int(bounds[si + 1])

@@ -11,8 +11,12 @@ the q5 path (parallel.shard.compress_sharded, `--path q5`), and prints:
   * the host's CUDA runtime calls by total time, where a call that waits
     for the card (a synchronize, a copy to pageable host memory) shows.
 
+With `--trace PATH` the profiled run is also written to PATH as a
+Chrome trace (utils/trace.device_profile).
+
 Usage, from the repository root on a machine with a card:
     python3 -m brotli_tpu_torch.tools.profile_q11 [--path q11|q5]
+        [--trace PATH]
 """
 
 import argparse
@@ -21,10 +25,10 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from .. import compress
 from ..parallel.shard import compress_sharded
+from ..utils.trace import device_profile
 from .corpus import build_corpus
 
 PATHS = {"q11": lambda data: compress(data, quality=11),
@@ -53,7 +57,10 @@ def _table(rows, title):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=sorted(PATHS), default="q11")
-    path = ap.parse_args(argv).path
+    ap.add_argument("--trace", default=None,
+                    help="write the profiled run here as a Chrome trace")
+    args = ap.parse_args(argv)
+    path = args.path
     run = PATHS[path]
     if not torch.cuda.is_available():
         raise SystemExit("profile_q11: CUDA is not available")
@@ -64,8 +71,7 @@ def main(argv=None) -> None:
     data = build_corpus()
     out = run(data)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile(args.trace) as prof:
         t0 = time.perf_counter()
         again = run(data)
         torch.cuda.synchronize()

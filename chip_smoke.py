@@ -75,7 +75,23 @@ Phases (any failure ends the run with a non-zero exit and no result):
      processes on the card through tools/mp_compress (gloo, a file://
      store), every rank's stream equal to the single-process mesh over
      [cuda:0] * 4;
- 14. print the kernels line (launches on each kernel's path, errors,
+ 14. the Python serializer and decoder on the card: compress(corpus,
+     quality=5, encoder="device") on the 16 MiB corpus, timed and
+     traced (K2 once per matcher segment, 4, and no other kernel; the
+     match.* and serialize stages), decoded natively, the card's bytes
+     against the CPU's on a 1 MiB prefix; compress(4 MiB, quality=11,
+     mode=1, encoder="device") (K1, K3 and K4 once each), decoded, the
+     card against the CPU on 512 KiB; compress_sharded(corpus,
+     quality=5, serializer="python") (K2's launches; its size beside
+     phase 6's native-serializer stream), decoded natively; the Python
+     decoder on a 4 MiB q5 stream of that route through decompress
+     (decoder="python") and through Decompressor(decoder="python") fed
+     1 MiB pieces under a 256 KiB output limit; the deferred parse
+     (Decoder.defer_lz) of phase 11's 4 MiB q11 stream, its literals
+     and copies equal to native.parse_stream's, resolved by K5 on the
+     card to the stream's bytes and K5 held bitwise against its plain
+     version on it; the phase's wall;
+ 15. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
@@ -155,13 +171,12 @@ def launch_split(fn, reps=5):
     """Median device microseconds of each kernel and copy that one call
     of fn launches (torch.profiler over `reps` calls, after a warm-up),
     as "name us" strings in launch order."""
+    from brotli_tpu_torch.utils.trace import device_profile
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     us = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -579,10 +594,8 @@ def device_serializer(corpus, part, q5_out, out2, rows, seeded, card):
     print("    K6's launches on the card (torch.profiler): " + "; ".join(
         launch_split(lambda: kernels.bitpack(pk[0], pk[1], pk[2:8], pk[8],
                                              pk[9]))), flush=True)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with trace.device_profile() as prof:
         BP.plan(*first_args["plan"])
-        torch.cuda.synchronize()
     plan_launches = sum(1 for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"    the plan of one metablock: {plan_launches} device kernels "
@@ -697,7 +710,8 @@ def device_decoder(corpus, streams, rows, seeded, dev, card):
 
 def public_surface(corpus, q11_out, q5_out, card):
     """Phase 11: the public API and the CLI over the native runtime and
-    the card. Every item prints its bytes, wall and MB/s."""
+    the card. Every item prints its bytes, wall and MB/s. Returns the
+    card's q11 stream of the 4 MiB prefix."""
     import brotli_tpu_torch as bt
     from brotli_tpu_torch.ops import kernels
 
@@ -818,6 +832,7 @@ def public_surface(corpus, q11_out, q5_out, card):
         with open(os.path.join(tmp, "back.bin"), "rb") as f:
             if f.read() != prefix:
                 sys.exit("chip_smoke: cli -d did not give the file back")
+    return on_card
 
 
 def dp_variants(corpus, rows, dev, card):
@@ -1223,6 +1238,184 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
                  "single-process mesh, or does not decode")
 
 
+def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
+                                  dev=torch.device("cuda")):
+    """Phase 14: the routes of the Python serializer (encoder="device"
+    at q5 and at q11 in mode 1, compress_sharded(serializer="python"))
+    and of the Python decoder (decoder="python", Decompressor, the
+    deferred parse resolved by K5) on `dev`."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch import native
+    from brotli_tpu_torch.dec.decoder import Decoder
+    from brotli_tpu_torch.ops import kernels, lz_resolve as LZ
+    from brotli_tpu_torch.ops import matcher as PM, optimal as OPT
+    from brotli_tpu_torch.parallel.shard import compress_sharded
+    from brotli_tpu_torch.utils import trace
+
+    def segments(n, seg, adv):
+        return len(range(0, n, adv if n > seg else seg))
+
+    t_phase = time.perf_counter()
+    print("[14] the Python serializer and decoder", flush=True)
+
+    def launched(label, fn, want):
+        kernels.reset_launches()
+        out, wall = timed(fn)
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if got != want:
+            sys.exit(f"chip_smoke: {label} launched {got}, not {want}")
+        return out, wall, got
+
+    # q5 through the device matcher and the Python serializer: K2 once
+    # per matcher segment (4 on the 16 MiB corpus)
+    def q5_dev():
+        return bt.compress(corpus, quality=5, encoder="device", device=dev)
+
+    k2 = {"chain_select": segments(len(corpus), PM.SEG_BYTES,
+                                   PM.SEG_BYTES // 2)}
+    out, wall, got = launched("compress(q5, encoder='device')", q5_dev, k2)
+    print(f"    compress q5, encoder='device': {len(corpus)} B -> "
+          f"{len(out)} B in {wall:.3f} s = {len(corpus) / wall / 1e6:.3f} "
+          f"MB/s [{card}]; launches {got}", flush=True)
+    trace.enable()
+    trace.reset()
+    again, traced = timed(q5_dev)
+    trace.enable(False)
+    print(f"    traced run {traced:.3f} s; its match.* and serialize "
+          f"stages:", flush=True)
+    for k, (calls, sec) in sorted(trace.report().items()):
+        if k.startswith("match") or k == "serialize":
+            print(f"      {k}: {calls} calls, {sec * 1e3:.1f} ms")
+    if again != out or bt.decompress(out) != corpus:
+        sys.exit("chip_smoke: the q5 encoder='device' stream differs "
+                 "between runs or does not decode")
+    prefix = corpus[:1 << 20]
+    on_card = bt.compress(prefix, quality=5, encoder="device", device=dev)
+    on_cpu = bt.compress(prefix, quality=5, encoder="device", device="cpu")
+    print(f"    q5 encoder='device', 1 MiB prefix: {dev.type} "
+          f"{len(on_card)} B, cpu {len(on_cpu)} B", flush=True)
+    if on_card != on_cpu:
+        sys.exit("chip_smoke: q5 encoder='device' differs on the CPU")
+
+    # q11 in mode 1 through the device DP and the Python serializer: K1,
+    # K3 and K4 once per DP segment (one 4 MiB segment)
+    part = corpus[:4 << 20]
+    nseg = segments(len(part), OPT.SEG_V3, OPT.SEG_V3)
+    out11, wall, got = launched(
+        "compress(q11, mode 1, encoder='device')",
+        lambda: bt.compress(part, mode=1, quality=11, encoder="device",
+                            device=dev),
+        {"suffix_min": nseg, "dp_scan": nseg, "dp_backtrack": nseg})
+    print(f"    compress q11 mode 1, encoder='device', 4 MiB: {len(part)} "
+          f"B -> {len(out11)} B in {wall:.3f} s = "
+          f"{len(part) / wall / 1e6:.3f} MB/s [{card}]; launches {got}; "
+          f"mode 0 on the card (phase 11) {len(q11_4mib)} B", flush=True)
+    if bt.decompress(out11) != part:
+        sys.exit("chip_smoke: the q11 mode-1 stream does not decode")
+    prefix = corpus[:512 << 10]
+    on_card = bt.compress(prefix, mode=1, quality=11, encoder="device",
+                          device=dev)
+    on_cpu = bt.compress(prefix, mode=1, quality=11, encoder="device",
+                         device="cpu")
+    print(f"    q11 mode 1, 512 KiB prefix: {dev.type} {len(on_card)} B, "
+          f"cpu {len(on_cpu)} B", flush=True)
+    if on_card != on_cpu:
+        sys.exit("chip_smoke: q11 mode 1 differs on the CPU")
+
+    # compress_sharded through the Python serializer
+    sh, wall, got = launched(
+        "compress_sharded(q5, serializer='python')",
+        lambda: compress_sharded(corpus, quality=5, serializer="python",
+                                 device=dev), k2)
+    print(f"    compress_sharded q5, serializer='python': {len(sh)} B in "
+          f"{wall:.3f} s [{card}]; launches {got}; the native serializer "
+          f"(phase 6) {len(q5_out)} B", flush=True)
+    if bt.decompress(sh) != corpus:
+        sys.exit("chip_smoke: the serializer='python' stream does not "
+                 "decode")
+    # one shard, the same parse split at the same 4 MiB metablocks, the
+    # same serializer: encoder="device"'s bytes
+    if sh != out:
+        sys.exit("chip_smoke: one shard through the Python serializer "
+                 "differs from encoder='device'")
+
+    # the Python decoder on a 4 MiB q5 stream of the device route
+    s5 = bt.compress(part, quality=5, encoder="device", device=dev)
+    back, wall_py = timed(lambda: bt.decompress(s5, decoder="python"))
+    _, wall_nat = timed(lambda: bt.decompress(s5))
+    if back != part or back != bt.decompress(s5):
+        sys.exit("chip_smoke: the Python decoder differs from the native")
+
+    def stream_in_pieces():
+        # the Python core decodes on a worker thread: with all input fed,
+        # process(b"") waits for it, and returns nothing only when the
+        # stream ends short
+        d = bt.Decompressor(decoder="python")
+        got, pos, calls = [], 0, 0
+        while not d.is_finished():
+            piece = b""
+            if d.can_accept_more_data() and pos < len(s5):
+                piece = s5[pos:pos + (1 << 20)]
+                pos += len(piece)
+            got.append(d.process(piece, output_buffer_limit=256 << 10))
+            calls += 1
+            if len(got[-1]) > 256 << 10:
+                sys.exit("chip_smoke: Decompressor exceeded its limit")
+            if (pos == len(s5) and not piece and not got[-1]
+                    and not d.is_finished()):
+                sys.exit("chip_smoke: Decompressor did not finish")
+        return b"".join(got), calls
+
+    (streamed, calls), wall_st = timed(stream_in_pieces)
+    print(f"    Python decoder, 4 MiB q5 stream ({len(s5)} B): decompress "
+          f"{wall_py:.3f} s, Decompressor in 1 MiB pieces at a 256 KiB "
+          f"limit {wall_st:.3f} s ({calls} calls), native {wall_nat:.3f} s",
+          flush=True)
+    if streamed != part:
+        sys.exit("chip_smoke: Decompressor(decoder='python') differs")
+
+    # the deferred parse of phase 11's 4 MiB q11 stream, resolved by K5
+    def deferred():
+        d = Decoder()
+        d.defer_lz = {"lits": bytearray(), "nlit": [], "ncopy": [],
+                      "dist": []}
+        d.decompress(q11_4mib)
+        return d.defer_lz
+
+    g, wall_dz = timed(deferred)
+    lits, cn, cc, cd, _ = native.parse_stream(q11_4mib)
+    if (bytes(g["lits"]) != lits
+            or not np.array_equal(LZ.copy_list(g["nlit"], g["ncopy"],
+                                               g["dist"]),
+                                  LZ.copy_list(cn, cc, cd))):
+        sys.exit("chip_smoke: the deferred parse's graph is not the "
+                 "native parse's")
+    resolved, _, got = launched(
+        "the resolve of the deferred parse",
+        lambda: LZ.resolve(bytes(g["lits"]), g["nlit"], g["ncopy"],
+                           g["dist"], device=dev), {"lz_resolve": 1})
+    if resolved != part:
+        sys.exit("chip_smoke: K5 resolved the deferred parse wrong")
+    nl, nc, nd = (torch.tensor(g[k], dtype=torch.int32, device=dev)
+                  for k in ("nlit", "ncopy", "dist"))
+    la = torch.from_numpy(np.frombuffer(bytes(g["lits"]), np.uint8)
+                          .copy()).to(dev)
+    n_out = len(part)
+    steps = LZ.n_steps_for(n_out)
+    k5, flag = kernels.lz_resolve(la, nl, nc, nd, n_out, steps)
+    err5 = max_abs_err(k5, LZ.resolve_plain(la, nl, nc, nd, n_out, steps)) \
+        + int(flag.item())
+    print(f"    deferred parse of the q11 4 MiB stream: {len(g['nlit'])} "
+          f"commands ({len(cn)} native), {len(lits)} literals, "
+          f"{wall_dz:.3f} s; K5 launches {got}, max_abs_err against its "
+          f"plain version {err5}", flush=True)
+    if err5:
+        sys.exit("chip_smoke: K5 disagrees with its plain version on the "
+                 "deferred parse")
+    print(f"    phase 14 wall: {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -1534,7 +1727,7 @@ def main():
         card)
 
     # -- 11. the public surface -----------------------------------------
-    public_surface(corpus, q11_out, q5_out, card)
+    q11_4mib = public_surface(corpus, q11_out, q5_out, card)
 
     # -- 12. the DP variants ----------------------------------------------
     launches_v1, launches_ring = dp_variants(corpus, rows, dev, card)
@@ -1542,7 +1735,10 @@ def main():
     # -- 13. several devices and processes ------------------------------
     mesh_and_processes(corpus, q5_out, card, dev)
 
-    # -- 14. report ------------------------------------------------------
+    # -- 14. the Python serializer and decoder ----------------------------
+    python_serializer_and_decoder(corpus, q5_out, q11_4mib, card, dev)
+
+    # -- 15. report ------------------------------------------------------
     path_launches = dict(launches, chain_select=launches_q5["chain_select"],
                          bitpack=launches_ds["bitpack"],
                          lz_resolve=launches_dec["lz_resolve"],

@@ -3,7 +3,8 @@ on the same files (each in a directory of its own) leaves the same
 files, with the same bytes, permissions and times, writes the same
 standard output and error, and returns the same code. Inputs are small
 (under 256 KiB), so every compress takes the native route of both
-packages. Also: one stdin-to-stdout run of `python -m
+packages; `-d/-t --comment` read the metadata through the Python
+decoder of both. Also: one stdin-to-stdout run of `python -m
 brotli_tpu_torch.cli`, `-V`, and what the port does not have yet.
 """
 
@@ -28,6 +29,11 @@ DICT = CORPUS[20_000:60_000]
 MTIME = 1_600_000_000
 
 
+def _commented():
+    c = brotli_tpu.Compressor(quality=5)
+    return c.emit_metadata(b"hello") + c.process(TEXT[:30_000]) + c.finish()
+
+
 def _files():
     stream = brotli_tpu.compress(TEXT, quality=5)
     fuzz = sorted((REPO / "tests" / "fuzz_corpus").iterdir())[0]
@@ -38,6 +44,7 @@ def _files():
             0, 256, 4096, dtype=np.uint8).tobytes(),
         "dict.bin": DICT,
         "a.txt.br": stream,
+        "c.txt.br": _commented(),
         "s.txt.bro": brotli_tpu.compress(TEXT[:9000], quality=3),
         "cat.br": brotli_tpu.compress(TEXT[:7000], quality=1)
         + brotli_tpu.compress(TEXT[7000:], quality=9),
@@ -114,8 +121,15 @@ CASES = {
     "d unknown suffix": ("brotli", ["-d", "text.txt"], {}),
     "unbrotli": ("unbrotli", ["a.txt.br"], {}),
     "brcat": ("brcat", ["cat.br"], {}),
+    "d comment": ("brotli", ["-d", "--comment", "hello", "c.txt.br"], {}),
+    "t comment": ("brotli", ["-t", "--comment", "hello", "c.txt.br"], {}),
+    "d wrong comment": ("brotli", ["-d", "--comment", "bye", "c.txt.br"],
+                        {}),
+    "t no comment": ("brotli", ["-t", "--comment", "hello", "a.txt.br"],
+                     {}),
 }
-FAILING = ("exists", "t trailing", "d truncated", "d unknown suffix")
+FAILING = ("exists", "t trailing", "d truncated", "d unknown suffix",
+           "d wrong comment", "t no comment")
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -151,15 +165,23 @@ def test_cli_version(capsys):
         f"brotli_tpu_torch {brotli_tpu.__version__}\n"
 
 
-@pytest.mark.parametrize("argv", [["-d", "--comment", "hello", "a.txt.br"],
-                                  ["-t", "--comment", "hello", "a.txt.br"],
+@pytest.mark.parametrize("argv", [["-d", "--comment", "hello", "c.txt.br"],
+                                  ["-t", "--comment", "hello", "c.txt.br"],
                                   ["--base64", "-q", "5", "text.txt"]])
 def test_cli_unported_fail_per_file(argv, tmp_path, monkeypatch,
                                     capsysbinary):
-    """What only the JAX package's Python decoder and pipeline serve
-    fails like any file's error: `{path}: {message}`, code 1."""
+    """`-d/-t --comment`, which the JAX package serves with its Python
+    decoder, now does what the JAX CLI does (code 0); what only the JAX
+    package's Python pipeline serves (--base64) fails like any file's
+    error: `{path}: {message}`, code 1."""
     rc, out, err, tree = _run(PC.main, tmp_path / "torch", "brotli", argv,
                               {}, monkeypatch, capsysbinary)
+    if "--comment" in argv:
+        want = _run(JC.main, tmp_path / "jax", "brotli", argv, {},
+                    monkeypatch, capsysbinary)
+        assert (rc, out, err, tree) == want
+        assert rc == 0 and err == b""
+        return
     assert rc == 1 and out == b""
     assert err.startswith(argv[-1].encode() + b": ")
     assert b"ROADMAP M13, second slice" in err

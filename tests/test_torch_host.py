@@ -343,8 +343,8 @@ _UNPORTED = {
     "dictionary with mode 1": lambda d: bt.compress(d, mode=1,
                                                     dictionary=b"abc"),
     "encoder python": lambda d: bt.compress(d, encoder="python"),
-    "encoder device at q5": lambda d: bt.compress(d, quality=5,
-                                                  encoder="device"),
+    "encoder device at q5 under 64 KiB": lambda d: bt.compress(
+        d[:-1], quality=5, encoder="device", device="cpu"),
     "Compressor mode 1": lambda d: bt.Compressor(mode=1),
     "Decompressor serialized": lambda d: bt.Decompressor(_SERIALIZED),
     "device decoder with a dictionary": lambda d: bt.decompress(
