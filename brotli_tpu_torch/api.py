@@ -5,22 +5,23 @@ back-pressure), ``estimate_peak_memory``, the reporting hooks and a
 single ``error`` exception type.
 
 ``compress`` routes as brotli_tpu does (enc/encoder.encode): q10/q11 on
-256 KiB or more runs the device DP on the card, everything else the
-port serves runs the native runtime; ``encoder="device"`` runs the
-device matcher or DP and the Python serializer. The streaming classes
-and the default decoders are the native runtime's;
+256 KiB or more runs the device DP on the card, what the native runtime
+takes runs there, and the rest (encoder="device" or "python", base64
+mode, serialized dictionaries, a dictionary with mode 1 or 2, ...) the
+Python pipeline, whose match finders take the card unless
+backend="numpy". The default decoders are the native runtime's;
 ``decompress(decoder="device")`` resolves on the card, and
 ``decoder="python"`` takes the Python decoder (dec/decoder.py,
-dec/stream.py). What only the JAX package's Python pipeline serves
-raises NotImplementedError (ROADMAP M13, second slice).
+dec/stream.py), as do serialized dictionaries with custom words or
+transforms.
 """
 
 from . import native
 from .dec.decoder import Decoder, FormatError
 from .dec.device_decode import decompress_device
 from .dec.stream import StreamDecoder
-from .enc.encoder import (_SECOND_SLICE, StreamingEncoder, _serialized,
-                          encode)
+from .enc.encoder import StreamingEncoder, encode
+from .format import shared_dictionary as shd
 
 # Compression modes (parity: c/include/brotli/encode.h BrotliEncoderMode).
 MODE_GENERIC = 0
@@ -59,36 +60,75 @@ def estimate_peak_memory(input_size, quality=_QUALITY_DEFAULT,
     return native.peak_memory(input_size, quality, lgwin)
 
 
+def _serialized(dictionary) -> bool:
+    """A serialized shared dictionary (magic 0x91 0x00), not raw bytes."""
+    return bool(dictionary) and bytes(dictionary[:2]) == b"\x91\x00"
+
+
+def _split_dictionary(dictionary):
+    """(raw LZ77 bytes or None, the parsed serialized dictionary or
+    None). A serialized one must be parsed for every decoder: its
+    container bytes taken as raw compound data decode to other bytes."""
+    if _serialized(dictionary):
+        return None, shd.parse(bytes(dictionary))
+    return (bytes(dictionary) if dictionary else None), None
+
+
+def _compound(raw, shared) -> bytes:
+    """The native decoder's compound data: the raw dictionary, or the
+    serialized one's prefixes."""
+    if shared is not None:
+        return b"".join(shared.prefixes)
+    return raw or b""
+
+
+def _needs_python_decoder(shared) -> bool:
+    """Custom word lists or transforms: only the Python decoder takes
+    them; raw prefixes attach to the native decoder as compound data."""
+    return shared is not None and bool(shared.word_lists
+                                       or shared.transform_lists)
+
+
 def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
              lgwin=_LGWIN_DEFAULT, lgblock=0, dictionary=None,
              large_window=False, base64_mode=False, *, encoder="auto",
-             device=None, dp=None) -> bytes:
+             backend="auto", device=None, dp=None) -> bytes:
     """One-shot compression; the positional order is
     brotli_tpu.compress's. `large_window` allows lgwin up to 30 (non-RFC
-    extension; the receiver must opt in too). `dictionary`: raw LZ77
-    bytes, attached as a compound dictionary.
+    extension; the receiver must opt in too). `dictionary` may be raw
+    LZ77 bytes or a serialized shared dictionary (its raw prefixes
+    attach as compound data; its custom word lists are matched by the
+    encoder).
 
     `encoder` takes the place of the JAX package's BROTLI_TPU_ENCODER:
     "auto" runs q10/q11 on 256 KiB or more (mode 0, no dictionary,
     lgwin <= 24) on `device` (None = "cuda", raising without it; "cpu"
-    runs the plain versions of the kernels) and the rest on the native
-    encoder; "native" runs everything there; "device" only the card's
-    inputs and, off them, the device matcher (q<=9, 64 KiB or more) or
-    the device DP (q10/q11 in modes 1 and 2) with the Python
-    serializer. See enc/encoder.encode for what raises
-    NotImplementedError.
+    runs the plain versions of the kernels) and what the native encoder
+    takes there; "native" takes the native encoder wherever it can;
+    "device" and "python" the Python pipeline, "device" with the card's
+    q10/q11 route first. `backend` takes the place of its
+    BROTLI_TPU_BACKEND: "auto" lets the Python pipeline's match finders
+    take the card where the JAX package takes its device, "numpy" keeps
+    them on the host. See enc/encoder.encode.
 
     `dp` takes the place of the variables of the JAX package's device DP
     (BROTLI_TPU_DP, BROTLI_TPU_RING_SCAN, ...): a
     brotli_tpu_torch.DPConfig, None for the default v3 parse. Only the
-    card's route reads it."""
+    card's routes read it."""
+    shared = None
+    if _serialized(dictionary):
+        sd = shd.parse(bytes(dictionary))
+        dictionary = b"".join(sd.prefixes) or None
+        if sd.word_lists:
+            shared = sd  # custom-word matching in the encoder
     if _on_start is not None:
         _on_start("compress", len(string))
     try:
         out = encode(bytes(string), quality=quality, lgwin=lgwin,
                      lgblock=lgblock, mode=mode, dictionary=dictionary,
                      large_window=large_window, base64_mode=base64_mode,
-                     encoder=encoder, device=device, dp=dp)
+                     shared=shared, encoder=encoder, backend=backend,
+                     device=device, dp=dp)
     except ValueError as e:
         raise error(str(e)) from e
     if _on_finish is not None:
@@ -100,38 +140,35 @@ def decompress(string, dictionary=None, large_window=False, *,
                decoder="native", device=None) -> bytes:
     """Decode a complete brotli stream; the positional order is
     brotli_tpu.decompress's. `dictionary`: raw LZ77 bytes (compound
-    dictionary); `large_window`: accept the non-RFC large-window
-    extension. `decoder` takes the place of the JAX package's
-    BROTLI_TPU_DECODER: "native" is the native decoder; "python" the
-    Python decoder (dec/decoder.py); "device" the native symbol parse
-    and the LZ resolve on `device` (None = "cuda", raising without it;
-    "cpu" runs the plain resolve), without a dictionary. Serialized
-    dictionaries and the device decoder with a dictionary are not
-    ported yet and raise NotImplementedError."""
+    dictionary) or a serialized shared dictionary (magic 0x91 0x00);
+    `large_window`: accept the non-RFC large-window extension.
+    `decoder` takes the place of the JAX package's BROTLI_TPU_DECODER:
+    "native" is the native decoder; "python" the Python decoder
+    (dec/decoder.py); "device" the native symbol parse and the LZ
+    resolve on `device` (None = "cuda", raising without it; "cpu" runs
+    the plain resolve). As in the JAX package, a dictionary with
+    decoder="device", and a serialized dictionary with custom word
+    lists or transforms, take the Python decoder."""
     if decoder not in ("native", "device", "python"):
         raise ValueError(f"unknown decoder {decoder!r}")
-    if _serialized(dictionary):
-        raise NotImplementedError(
-            f"serialized shared dictionaries ({_SECOND_SLICE})")
-    if dictionary and decoder == "device":
-        raise NotImplementedError(
-            "decoder='device' with a dictionary: the JAX package runs "
-            f"its Python decoder there ({_SECOND_SLICE})")
+    data = bytes(string)
+    dictionary, shared = _split_dictionary(dictionary)
+    if decoder == "device" and (dictionary or shared is not None):
+        decoder = "python"
+    if decoder == "native" and _needs_python_decoder(shared):
+        decoder = "python"
     if decoder == "python":
         try:
-            return Decoder(dictionary=dictionary,
-                           large_window=large_window).decompress(
-                               bytes(string))
+            return Decoder(dictionary=dictionary, shared=shared,
+                           large_window=large_window).decompress(data)
         except FormatError as e:
             raise error(str(e)) from e
         except Exception as e:  # truncated input etc.
             raise error(f"decompression failed: {e}") from e
     try:
         if decoder == "device":
-            return decompress_device(bytes(string), large_window,
-                                     device=device)
-        return native.decode(bytes(string),
-                             compound=bytes(dictionary or b""),
+            return decompress_device(data, large_window, device=device)
+        return native.decode(data, compound=_compound(dictionary, shared),
                              large_window=large_window)
     except ValueError as e:
         raise error(str(e)) from e
@@ -160,16 +197,21 @@ def decompress_concatenated(string) -> bytes:
 
 
 class Compressor:
-    """Streaming compressor (process/flush/finish) over the native
-    stream encoder. ``flush`` emits a byte-aligned, independently
-    decodable prefix (FLUSH semantics of BrotliEncoderCompressStream);
-    ``finish`` closes the stream. Modes 1 and 2 raise
-    NotImplementedError."""
+    """Streaming compressor (process/flush/finish). ``flush`` emits a
+    byte-aligned, independently decodable prefix (FLUSH semantics of
+    BrotliEncoderCompressStream); ``finish`` closes the stream. Mode 0
+    runs the native stream encoder; modes 1 and 2 (and
+    encoder="python") buffer the input and run the Python pipeline at
+    each flush, its match finders on `device` unless backend="numpy"
+    (enc/encoder.StreamingEncoder)."""
 
     def __init__(self, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
-                 lgwin=_LGWIN_DEFAULT, lgblock=0):
+                 lgwin=_LGWIN_DEFAULT, lgblock=0, *, encoder="auto",
+                 backend="auto", device=None, dp=None):
         self._enc = StreamingEncoder(quality=quality, lgwin=lgwin,
-                                     lgblock=lgblock, mode=mode)
+                                     lgblock=lgblock, mode=mode,
+                                     encoder=encoder, backend=backend,
+                                     device=device, dp=dp)
 
     def process(self, string) -> bytes:
         return self._enc.process(bytes(string))
@@ -197,22 +239,21 @@ class Decompressor:
     emitted chunk's granularity. Either way a small chunk that expands
     enormously is never materialized. While output is pending,
     ``can_accept_more_data()`` is False and ``process(b"")`` drains the
-    next slice. A raw dictionary attaches as compound data; a
-    serialized one raises NotImplementedError."""
+    next slice. A raw dictionary attaches as compound data, and so do
+    the prefixes of a serialized one; custom word lists or transforms
+    take the Python core, as in the JAX package."""
 
     def __init__(self, dictionary=None, *, decoder="native"):
         if decoder not in ("native", "python"):
             raise ValueError(f"unknown decoder {decoder!r}")
-        if _serialized(dictionary):
-            raise NotImplementedError(
-                f"serialized shared dictionaries ({_SECOND_SLICE})")
-        self._native = decoder == "native"
+        raw, shared = _split_dictionary(dictionary)
+        self._native = (decoder == "native"
+                        and not _needs_python_decoder(shared))
         if self._native:
             self._inc = native.StreamDecoder(
-                compound=bytes(dictionary or b""))
+                compound=_compound(raw, shared))
         else:
-            self._inc = StreamDecoder(
-                dictionary=bytes(dictionary) if dictionary else None)
+            self._inc = StreamDecoder(dictionary=raw, shared=shared)
         self._pending = bytearray()
 
     def process(self, string=b"", output_buffer_limit=None) -> bytes:

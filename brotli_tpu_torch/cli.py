@@ -1,7 +1,9 @@
 """Command-line interface of the port, flag-compatible subset of the
 reference `brotli` tool (parity anchor: c/tools/brotli.c
 ParseParams/main); a copy of brotli_tpu.cli over the port's API.
-Compressing at -q 10/11 a file of 256 KiB or more runs on the card.
+Compressing at -q 10/11 a file of 256 KiB or more runs on the card, and
+so do the match finders of the Python pipeline (--base64, -D with a
+serialized dictionary of custom words) on 64 KiB or more.
 
 Usage: python -m brotli_tpu_torch.cli [OPTIONS] [FILES]
 """

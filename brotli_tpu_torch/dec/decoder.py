@@ -5,13 +5,11 @@ A from-scratch, spec-driven implementation: every metablock is parsed into
 buffers (copy of brotli_tpu.dec.decoder). It is the independent oracle
 of the port's native and device decoders, and its deferred parse
 (`defer_lz`) gives the copy graph that ops/lz_resolve.py resolves.
-Serialized shared dictionaries with custom words or transforms are not
-ported yet and raise NotImplementedError. One repair: every prefix-code
-symbol is read through the reader's `read_symbol`, which the streaming
-reader (dec/stream.py) answers as soon as it holds the bits the symbol
-takes; the JAX package's copy waits for the table's longest code, so a
-stream whose last symbol is shorter than that never finishes there
-until its input is closed.
+One repair: every prefix-code symbol is read through the reader's
+`read_symbol`, which the streaming reader (dec/stream.py) answers as
+soon as it holds the bits the symbol takes; the JAX package's copy
+waits for the table's longest code, so a stream whose last symbol is
+shorter than that never finishes there until its input is closed.
 
 Parity anchors (behavior, not code): c/dec/decode.c (state machine),
 c/dec/bit_reader.h, RFC 7932 sections 2-10.
@@ -598,11 +596,14 @@ class Decoder:
                     remaining -= copy_len
                 else:
                     if self.shared is not None:
-                        raise NotImplementedError(
-                            "custom dictionary words (ROADMAP M13, "
-                            "second slice)")
-                    word = dict_mod.decode_reference(
-                        copy_len, address - csize)
+                        from ..format import shared_dictionary as shd
+                        word = shd.decode_reference(
+                            self.shared, copy_len, address - csize,
+                            out[-1] if out else 0,
+                            out[-2] if len(out) >= 2 else 0, lit_lut)
+                    else:
+                        word = dict_mod.decode_reference(
+                            copy_len, address - csize)
                     if word is None:
                         raise FormatError("invalid dictionary reference", E.DICTIONARY)
                     out += word

@@ -8,8 +8,9 @@ graph on the card by pointer doubling (ops/lz_resolve.py, K5).
 Reference role: c/dec/decode.c:2401-2406 ProcessCommands, re-split so
 the byte movement is data-parallel.
 
-The port has no Python decoder yet (ROADMAP M13), so a stream the
-native parse does not take raises; nothing falls back.
+A stream the native parse does not take raises; nothing falls back.
+A dictionary sends `api.decompress` to the Python decoder before this
+path is chosen, as in the JAX package.
 """
 
 from .. import native

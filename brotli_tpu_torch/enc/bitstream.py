@@ -1,6 +1,5 @@
 """RFC 7932 bitstream assembly: stream header + metablock serialization
-(copy of brotli_tpu.enc.bitstream; base64 mode is not ported yet and
-raises NotImplementedError).
+(copy of brotli_tpu.enc.bitstream).
 
 Fully vectorized: command fields and literal runs are interleaved into a
 single (value, nbits) stream with cumsum/scatter array surgery
@@ -433,12 +432,8 @@ def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
     splitting and a distance context map (parity: BrotliStoreMetaBlock,
     c/enc/brotli_bit_stream.c + metablock.c q>=10 path).
     `ring`: 4-slot decoder distance ring entering the block (newest
-    first; None = stream start). Returns the updated ring. A base64
-    mask (`b64_mask`) raises NotImplementedError.
+    first; None = stream start). Returns the updated ring.
     """
-    if b64_mask is not None:
-        raise NotImplementedError(
-            "base64 literal blocks (ROADMAP M13, second slice)")
     from .quality import policy
     pol = policy(quality)
     ins, cpy, dist, dflag = _as_arrays(cmds)
@@ -479,6 +474,28 @@ def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
         ntypes = 1
         type_of_lit = np.zeros(nlit, np.int64)
 
+    # --- base64 literal-split forcing (parity: metablock.c
+    # ForceBase64LiteralSplits + the fixed flat code in
+    # block_encoder_inc.h): payload literals get a dedicated block
+    # type whose tree is the 6-bit base64 code
+    b64_type = None
+    if b64_mask is not None and nlit:
+        lit_b64 = b64_mask[np.minimum(lit_pos, len(b64_mask) - 1)]
+        if lit_b64.any():
+            b64_type = ntypes
+            ntypes += 1
+            type_of_lit = np.where(lit_b64, b64_type, type_of_lit)
+            if type_of_lit[0] != 0:  # first block type must be 0 (RFC 6)
+                a, b = int(type_of_lit[0]), 0
+                perm = np.arange(ntypes)
+                perm[a], perm[b] = b, a
+                type_of_lit = perm[type_of_lit]
+                b64_type = int(perm[b64_type])
+            edges = np.flatnonzero(np.diff(type_of_lit)) + 1
+            bounds = np.concatenate([[0], edges, [nlit]])
+            block_lengths = np.diff(bounds)
+            run_types = type_of_lit[bounds[:-1]]
+
     cmd_split = dist_split = None
     if pol.cmd_dist_split and ncmd >= pol.min_split_cmds:
         cmd_split = block_split.split_symbols(
@@ -510,10 +527,15 @@ def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
         mode = 0
         ctx_ids = np.zeros(nlit, np.int64)
     group = (type_of_lit << C.LITERAL_CONTEXT_BITS) | ctx_ids
+    b64_tree = None
     if use_context or ntypes > 1:
         hists = cm.context_histograms(
             literals, group, ntypes * C.NUM_LITERAL_CONTEXTS,
             C.NUM_LITERAL_SYMBOLS)
+        if b64_type is not None:
+            # base64 contexts use the forced flat code; their rows must
+            # not shape the clustering
+            hists[b64_type * 64:(b64_type + 1) * 64] = 0
         if use_context:
             assign, merged = cm.cluster_histograms(
                 hists, max_trees=pol.max_lit_trees,
@@ -525,6 +547,24 @@ def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
                 hists[t * 64:(t + 1) * 64].sum(axis=0)
                 for t in range(ntypes)])
         ntrees = len(merged)
+        if b64_type is not None:
+            b64_tree = ntrees
+            ntrees += 1
+            merged = np.concatenate(
+                [merged, np.zeros((1, C.NUM_LITERAL_SYMBOLS),
+                                  merged.dtype)])
+            assign = assign.copy()
+            assign[(b64_type << C.LITERAL_CONTEXT_BITS) +
+                   np.arange(C.NUM_LITERAL_CONTEXTS)] = b64_tree
+            # drop trees no context references anymore (the zeroed
+            # b64 rows may have left an orphan in the per-type path)
+            used = np.unique(assign)
+            remap = np.zeros(ntrees, np.int64)
+            remap[used] = np.arange(len(used))
+            assign = remap[assign]
+            merged = merged[used]
+            b64_tree = int(remap[b64_tree])
+            ntrees = len(used)
         if ntrees == 1 and ntypes == 1:
             use_context = False
     multi = use_context or ntypes > 1
@@ -603,7 +643,12 @@ def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
         lit_lens2d = np.zeros((ntrees, C.NUM_LITERAL_SYMBOLS), np.int32)
         lit_codes2d = np.zeros_like(lit_lens2d, dtype=np.int64)
         for t in range(ntrees):
-            true_len = package_merge(merged[t], C.HUFFMAN_MAX_CODE_LENGTH)
+            if t == b64_tree:
+                from .base64_mode import base64_code_lengths
+                true_len = base64_code_lengths()
+            else:
+                true_len = package_merge(merged[t],
+                                         C.HUFFMAN_MAX_CODE_LENGTH)
             write_huffman_code(bw, true_len, C.NUM_LITERAL_SYMBOLS)
             e = _emission(true_len)
             lit_lens2d[t] = e

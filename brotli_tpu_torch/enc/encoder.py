@@ -1,10 +1,21 @@
-"""Encoder routing (counterpart of brotli_tpu.enc.encoder.encode and
-StreamingEncoder): the q10/q11 device encode, where the optimal-parse DP
-streams finished metablock spans into a native serialization worker;
-encoder="device" off that route, the device matcher (q<=9) or the
-device DP (q10/q11 in modes 1 and 2) with the Python serializer
-(`_write_blocks` -> bitstream.store_metablock); and the native one-shot
-and streaming encoders for everything else the port serves.
+"""Encoder routing and the Python pipeline (counterpart of
+brotli_tpu.enc.encoder): quality dispatch, metablock partitioning,
+uncompressed fallback, streaming.
+
+Routes, chosen by the JAX package's conditions before any work:
+- the native one-shot and streaming encoders, for what they take;
+- the q10/q11 device encode, where the optimal-parse DP on the card
+  streams finished metablock spans into a native serialization worker;
+- the Python pipeline for everything else: a match finder over the
+  whole input (`find_matches`: the device DP or matcher on the card,
+  or the host matchers and the host DP), then per-metablock command
+  streams through the Python serializer (`_write_blocks` ->
+  bitstream.store_metablock).
+
+`backend` takes the place of the JAX package's BROTLI_TPU_BACKEND:
+"auto" takes the card (or `device`) wherever the JAX package takes its
+device backend, "numpy" only the host matchers and the host DP. No
+route gives way to another after a failure.
 """
 
 import queue
@@ -20,18 +31,24 @@ from ..ops.optimal import find_matches_optimal
 from ..utils import trace
 from ..utils.device import resolve
 from . import bitstream, matcher
+from . import optimal as host_dp
 from .quality import policy
 
 _DEFAULT_MB_BITS = 22  # metablock size (lgblock); <= 24
-MIN_DEVICE_INPUT = 1 << 18  # the JAX package's device-encode threshold
-_VECTOR_THRESHOLD = 1 << 16  # the JAX package's device-matcher threshold
+MIN_DEVICE_INPUT = 1 << 18  # the JAX package's device-DP threshold
+_VECTOR_THRESHOLD = 1 << 16  # below this the serial matcher is faster
+# the input sizes the host DP takes at q10/q11 (larger ones take the
+# iterated cost-model parse)
+HOST_DP_MIN, HOST_DP_MAX = 1 << 10, 8 << 20
 ENCODERS = ("auto", "native", "device", "python")
-_SECOND_SLICE = "ROADMAP M13, second slice"
+BACKENDS = ("auto", "numpy")
 
 
-def _serialized(dictionary) -> bool:
-    """A serialized shared dictionary (magic 0x91 0x00), not raw bytes."""
-    return bool(dictionary) and bytes(dictionary[:2]) == b"\x91\x00"
+def _check_routes(encoder, backend):
+    if encoder not in ENCODERS:
+        raise ValueError(f"unknown encoder {encoder!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
 
 
 def _sanitize_params(quality, lgwin, lgblock, large_window=False):
@@ -45,134 +62,210 @@ def _sanitize_params(quality, lgwin, lgblock, large_window=False):
     return quality, lgwin, lgblock
 
 
+def find_matches(arr, max_distance, quality, large=False, *,
+                 backend="auto", device=None, dp=None):
+    """Quality-dispatched match finder over the full buffer (policy
+    table: enc/quality.py), the JAX package's dispatch with its device
+    backend on `device` (None = "cuda", raising without it) unless
+    backend="numpy":
+
+    - beyond lgwin 24 (`large`): the host vectorized matcher (the
+      device paths pack distances in 24/25 bits);
+    - q10/q11 on 256 KiB or more: the device DP ("auto");
+    - q10/q11 from 1 KiB to 8 MiB: the host DP (enc/optimal.py), and
+      beyond 8 MiB the iterated cost-model parse;
+    - 64 KiB or more: the device matcher ("auto"), else the host
+      vectorized matcher;
+    - below: the greedy host matcher and the static-dictionary pass.
+
+    `dp`: the device DP's ops.optimal.DPConfig."""
+    pol = policy(quality)
+    if large:
+        return matcher.find_matches_vectorized(
+            arr, max_distance, num_candidates=pol.num_candidates,
+            use_dict=pol.use_dict)
+    on_card = backend == "auto"
+    n = len(arr)
+    if pol.optimal_parse and n >= MIN_DEVICE_INPUT and on_card:
+        return find_matches_optimal(arr, max_distance, device=device, dp=dp)
+    if pol.optimal_parse and HOST_DP_MIN <= n <= HOST_DP_MAX:
+        return host_dp.find_matches_optimal(arr, max_distance,
+                                            nc=pol.dp_candidates)
+    if pol.optimal_parse and n > HOST_DP_MAX:
+        return matcher.find_matches_costmodel(
+            arr, max_distance, num_candidates=6, use_dict=True)
+    if n >= _VECTOR_THRESHOLD and on_card:
+        return find_matches_device(arr, max_distance, quality,
+                                   device=device)
+    if n >= _VECTOR_THRESHOLD:
+        return matcher.find_matches_vectorized(
+            arr, max_distance, num_candidates=pol.num_candidates,
+            use_dict=pol.use_dict)
+    m, lens, dists = matcher.find_matches_greedy(arr, max_distance)
+    flags = np.zeros(len(m), np.int64)
+    if pol.use_dict and n >= 8:
+        return matcher.add_dictionary_matches(arr, m, lens, dists, flags,
+                                              max_distance)
+    return m, lens, dists, flags
+
+
 def encode(data: bytes, quality: int = 11, lgwin: int = 22,
            lgblock: int = 0, mode: int = 0, dictionary=None,
-           large_window: bool = False, base64_mode: bool = False, *,
-           encoder: str = "auto", device=None, dp=None) -> bytes:
+           large_window: bool = False, base64_mode: bool = False,
+           shared=None, *, encoder: str = "auto", backend: str = "auto",
+           device=None, dp=None) -> bytes:
     """One-shot encode, routed by the JAX package's own conditions
-    before any work (brotli_tpu.enc.encoder.encode), with `encoder` in
-    place of its BROTLI_TPU_ENCODER:
+    (brotli_tpu.enc.encoder.encode), with `encoder` in place of its
+    BROTLI_TPU_ENCODER and `backend` in place of its BROTLI_TPU_BACKEND:
 
-    - an empty input: the stream header and an empty last metablock;
-    - a raw dictionary (mode 0, no base64, lgwin <= 24): the native
-      encoder with the dictionary attached ("auto", "native");
-    - q10/q11 on 256 KiB or more, mode 0, no dictionary, no base64,
-      lgwin <= 24: the device DP on `device` ("auto", "device"; None
-      means the card and raises without one), the native q10/q11 tier
-      with "native";
-    - encoder="device" on any other input with no dictionary and no
-      base64, lgwin <= 24: q<=9 on 64 KiB or more runs the device
-      matcher (K2) and q10/q11 on 256 KiB or more (modes 1 and 2) the
-      device DP, both on `device`, then the Python serializer;
-    - any other input in mode 0, 1 or 2 with no dictionary and no
-      base64: the native one-shot encoder ("auto", "native").
+    - a raw dictionary (mode 0, no base64, lgwin <= 24, not empty): the
+      native encoder with the dictionary attached ("auto", "native");
+    - q10/q11 on 256 KiB or more, mode 0, no dictionary or an empty
+      one, no base64, lgwin <= 24, backend "auto": the device DP on
+      `device` with the native serializer (None means the card and
+      raises without one); "native" takes the native encoder there and
+      "python" the Python pipeline (the JAX package's default takes its
+      native q10/q11 tier);
+    - no dictionary and no base64 in modes 0-2: the native one-shot
+      encoder ("auto", "native");
+    - everything else, and every input with encoder "device" or
+      "python": the Python pipeline, `find_matches` over the
+      dictionary and the input, then the Python serializer.
 
-    `dp`: the device DP's ops.optimal.DPConfig (None = the default v3
-    parse), in place of the JAX package's BROTLI_TPU_DP and the other
-    variables of its DP; the native routes ignore it.
-
-    A route never gives way to another after a failure. What only the
-    JAX package's Python pipeline serves raises NotImplementedError:
-    serialized dictionaries, base64 mode, a dictionary with mode 1 or
-    2, a raw dictionary beyond lgwin 24, `dictionary=b""`,
-    encoder="python", and encoder="device" under 64 KiB (q<=9) or
-    256 KiB (q10/q11), beyond lgwin 24 or with a dictionary."""
-    if encoder not in ENCODERS:
-        raise ValueError(f"unknown encoder {encoder!r}")
-    if encoder == "python":
-        raise NotImplementedError(
-            f"encoder='python', the Python pipeline ({_SECOND_SLICE})")
+    `dictionary`: raw LZ77 bytes, matched as a compound dictionary.
+    `shared`: a parsed serialized dictionary (format/shared_dictionary)
+    whose custom word lists are matched (enc/custom_dict.py); its
+    prefixes come in `dictionary`. `large_window`: allow lgwin up to 30
+    (non-RFC extension). `base64_mode`: detect ';base64,' payload
+    regions, skip LZ there and emit them under a forced flat 6-bit
+    literal code. `dp`: the device DP's ops.optimal.DPConfig (None = the
+    default v3 parse), in place of the JAX package's BROTLI_TPU_DP and
+    the other variables of its DP."""
+    _check_routes(encoder, backend)
     quality, lgwin, lgblock = _sanitize_params(quality, lgwin, lgblock,
                                                large_window)
     raw = bytes(data)
     n = len(raw)
-    if n == 0:
-        bw = BitWriter()
-        bitstream.write_stream_header(bw, lgwin)
-        bitstream.write_last_empty(bw)
-        return bw.getvalue()
-    if _serialized(dictionary):
-        raise NotImplementedError(
-            f"serialized shared dictionaries ({_SECOND_SLICE})")
-    plain = (mode == 0 and not base64_mode
-             and lgwin <= C.MAX_WINDOW_BITS)
-    if (dictionary is not None and len(dictionary) > 0 and plain
-            and encoder != "device"):
+    native_first = encoder in ("auto", "native")
+    plain = mode == 0 and not base64_mode and shared is None
+    if (native_first and plain and dictionary is not None
+            and len(dictionary) > 0 and n > 0
+            and lgwin <= C.MAX_WINDOW_BITS):
         return native.encode_with_dict(raw, quality, lgwin,
                                        bytes(dictionary))
-    if (dictionary is None and plain and quality >= 10
-            and n >= MIN_DEVICE_INPUT and encoder != "native"):
-        arr = np.frombuffer(raw, dtype=np.uint8)
-        out = _encode_q11_streamed(arr, n, C.max_backward_distance(lgwin),
-                                   quality, lgblock, lgwin,
-                                   resolve(device), dp)
-        if len(out) >= n + 4:
-            return _store_uncompressed(arr, lgwin)
-        return out
-    if encoder == "device":
-        return _encode_device(raw, quality, lgwin, lgblock, mode,
-                              dictionary, base64_mode, resolve(device), dp)
-    if dictionary is None and mode in (0, 1, 2) and not base64_mode:
+    D = len(dictionary) if dictionary else 0
+    large = lgwin > C.MAX_WINDOW_BITS
+    maxback = C.max_backward_distance(lgwin)
+    card_q11 = (backend == "auto" and plain and quality >= 10
+                and n >= MIN_DEVICE_INPUT and D == 0 and not large)
+    if card_q11 and encoder == "auto":
+        # the port's default, where the JAX package's default takes its
+        # native q10/q11 tier
+        return _encode_on_card(raw, maxback, quality, lgblock, lgwin,
+                               device, dp)
+    if (native_first and dictionary is None and shared is None
+            and mode in (0, 1, 2) and not base64_mode and n > 0):
         return native.encode(raw, quality, lgwin, mode=mode)
-    raise NotImplementedError(
-        "base64 mode, a dictionary with mode 1 or 2, a raw dictionary "
-        "beyond lgwin 24 or an empty one: the Python pipeline "
-        f"({_SECOND_SLICE})")
-
-
-def find_matches(arr, max_distance, quality, device=None, dp=None):
-    """The device match finders of brotli_tpu.enc.encoder.find_matches
-    (its quality dispatch on a device backend): the device DP at
-    q10/q11 on 256 KiB or more, the device matcher at q<=9 on 64 KiB or
-    more, both on `device`. The host matchers and the host DP it takes
-    elsewhere raise NotImplementedError."""
-    if policy(quality).optimal_parse:
-        if len(arr) >= MIN_DEVICE_INPUT:
-            return find_matches_optimal(arr, max_distance, device=device,
-                                        dp=dp)
-        raise NotImplementedError(
-            f"q10/q11 under 256 KiB: the host DP ({_SECOND_SLICE})")
-    if len(arr) >= _VECTOR_THRESHOLD:
-        return find_matches_device(arr, max_distance, quality,
-                                   device=device)
-    raise NotImplementedError(
-        f"under 64 KiB: the greedy host matcher ({_SECOND_SLICE})")
-
-
-def _encode_device(raw, quality, lgwin, lgblock, mode, dictionary,
-                   base64_mode, device, dp):
-    """The JAX package's pipeline under BROTLI_TPU_ENCODER=device on a
-    device backend, past its q10/q11 mode-0 streamed route: the device
-    match finder over the whole input, then `_write_blocks` with the
-    mode's context model, and the uncompressed fallback."""
-    if base64_mode:
-        raise NotImplementedError(f"base64 mode ({_SECOND_SLICE})")
-    if dictionary is not None:
-        raise NotImplementedError(
-            f"encoder='device' with a dictionary ({_SECOND_SLICE})")
-    if lgwin > C.MAX_WINDOW_BITS:
-        raise NotImplementedError(
-            f"encoder='device' beyond lgwin 24 ({_SECOND_SLICE})")
-    n = len(raw)
-    arr = np.frombuffer(raw, dtype=np.uint8)
-    with trace.stage("match-find"):
-        matches = find_matches(arr, C.max_backward_distance(lgwin),
-                               quality, device, dp)
+    if card_q11 and encoder != "python":
+        return _encode_on_card(raw, maxback, quality, lgblock, lgwin,
+                               device, dp)
     bw = BitWriter()
     bitstream.write_stream_header(bw, lgwin)
+    if n == 0:
+        bitstream.write_last_empty(bw)
+        return bw.getvalue()
+    arr = np.frombuffer((bytes(dictionary) if D else b"") + raw,
+                        dtype=np.uint8)
+    with trace.stage("match-find"):
+        matches = find_matches(arr, maxback, quality, large=large,
+                               backend=backend, device=device, dp=dp)
+    if D:
+        matches = _lift_dictionary_matches(matches, D, maxback)
+    if shared is not None:
+        matches = _custom_word_matches(arr, D, matches, shared, maxback)
+    b64_mask = None
+    if base64_mode:
+        from . import base64_mode as b64
+        starts, lengths = b64.detect_regions(arr[D:])
+        if len(starts):
+            b64_mask = np.zeros(len(arr), bool)
+            b64_mask[D:] = b64.region_mask(arr[D:], starts, lengths)
+            matches = b64.drop_matches_in_regions(matches, b64_mask)
     # mode hint (parity: BrotliEncoderMode + ChooseContextMode): TEXT
     # forces the UTF8 context model, FONT the signed-byte model
-    _write_blocks(bw, arr, 0, n, matches, lgblock, is_last=True,
-                  quality=quality, context_mode={1: 2, 2: 3}.get(mode))
+    _write_blocks(bw, arr, D, D + n, matches, lgblock, is_last=True,
+                  quality=quality, ctx_floor=D, large=large,
+                  context_mode={1: 2, 2: 3}.get(mode), b64_mask=b64_mask)
     bw.align_to_byte()
     out = bw.getvalue()
     if len(out) >= n + 4:
+        return _store_uncompressed(arr[D:], lgwin)
+    return out
+
+
+def _encode_on_card(raw, maxback, quality, lgblock, lgwin, device, dp):
+    """The q10/q11 device encode of `raw`, or the uncompressed stream
+    where that is not smaller."""
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    out = _encode_q11_streamed(arr, len(raw), maxback, quality, lgblock,
+                               lgwin, resolve(device), dp)
+    if len(out) >= len(raw) + 4:
         return _store_uncompressed(arr, lgwin)
     return out
 
 
+def _custom_word_matches(arr, D, matches, shared, maxback):
+    """The custom word lists of an attached serialized dictionary
+    (encoder_dict.c BROTLI_EXPERIMENTAL role), matched in the parse's
+    gaps. A custom word list REPLACES dictionary 0: builtin
+    static-dictionary references (flags 2..999, the legacy cutoffs, and
+    2000+, the general transforms) would address the wrong word space
+    at decode, so they are dropped and their spans become gaps the
+    custom pass can fill.
+
+    One repair of the JAX package's pass: only matches that start in
+    the input (at D or later) go into it. The JAX package passes the
+    matches the parse found inside the dictionary's prefix too, at
+    negative positions, which wrap around in the pass's gap map: with a
+    prefix and custom words its encoder then places words over other
+    matches, and raises OverflowError on a negative insert or writes a
+    stream that decodes to other bytes. Those matches are never
+    serialized (`_write_blocks` starts at D), so leaving them out
+    changes nothing else."""
+    from .custom_dict import add_custom_matches, build_index
+    idx = build_index(shared)
+    if idx is None:
+        return matches
+    m0, l0, d0, f0 = matches
+    keep = (m0 >= D) & ((f0 < 2) | ((f0 >= 1000) & (f0 < 2000)))
+    m0, l0, d0, f0 = m0[keep], l0[keep], d0[keep], f0[keep]
+    # work in stream coordinates for gap/dist math
+    m0, l0, d0, f0 = add_custom_matches(arr[D:], (m0 - D, l0, d0, f0),
+                                        idx, maxback, D)
+    return m0 + D, l0, d0, f0
+
+
+def _lift_dictionary_matches(matches, D, maxback):
+    """Convert concat-space matches whose source lies in the dictionary
+    prefix into compound-dictionary references (RFC shared-brotli):
+    stream distance = min(pos, window) + (D - source_offset)."""
+    m, lens, dists, flags = matches
+    src = m - dists
+    in_dict = (src < D) & (flags == 0)
+    # source must not cross the dict/data boundary (decoder copies from
+    # the dictionary buffer only): trim, drop if too short
+    lens = np.where(in_dict, np.minimum(lens, D - src), lens)
+    p = m - D  # stream position
+    dists = np.where(in_dict,
+                     np.minimum(p, maxback) + (D - src), dists)
+    flags = np.where(in_dict, 1, flags)
+    keep = lens >= 2
+    return m[keep], lens[keep], dists[keep], flags[keep]
+
+
 def _write_blocks(bw, arr, lo, hi, matches, lgblock, is_last,
-                  ring=None, quality=1, context_mode=None):
+                  ring=None, quality=1, ctx_floor=0, large=False,
+                  context_mode=None, b64_mask=None):
     """Serialize region [lo, hi) as metablocks; returns the distance
     ring state after the last block."""
     mb_size = 1 << lgblock
@@ -185,7 +278,8 @@ def _write_blocks(bw, arr, lo, hi, matches, lgblock, is_last,
         with trace.stage("serialize"):
             ring = bitstream.store_metablock(
                 bw, arr, pos, b - pos, cmds, block_last, ring,
-                quality=quality, context_mode=context_mode)
+                quality=quality, ctx_floor=ctx_floor, large=large,
+                context_mode=context_mode, b64_mask=b64_mask)
         pos = b
     return ring
 
@@ -267,42 +361,118 @@ def _store_uncompressed(arr, lgwin) -> bytes:
 
 
 class StreamingEncoder:
-    """Streaming encoder over the native stream encoder (the native half
-    of brotli_tpu.enc.encoder.StreamingEncoder): hash-chain state
-    persists across chunks; each flush ends with an empty metadata
-    block, so every flushed prefix decodes on its own. Modes 1 and 2
-    take the JAX package's Python pipeline and raise
-    NotImplementedError."""
+    """Streaming encoder (brotli_tpu.enc.encoder.StreamingEncoder).
 
-    def __init__(self, quality=11, lgwin=22, lgblock=0, mode=0):
-        if mode != 0:
-            raise NotImplementedError(
-                f"streaming in mode {mode}: the Python pipeline "
-                f"({_SECOND_SLICE})")
-        self.params = _sanitize_params(quality, lgwin, lgblock)
+    In mode 0 (but with encoder="python") it is the native stream
+    encoder, whose hash-chain state persists across chunks. Otherwise
+    input is buffered and emitted on flush()/finish() by the Python
+    pipeline: `find_matches` over the window's history and the buffer
+    (on the card with backend "auto", as in `encode`), then the Python
+    serializer for the new region only. Each flush ends with an empty
+    metadata block to byte-align the stream, so every flushed prefix
+    decodes on its own (parity: BROTLI_OPERATION_FLUSH,
+    c/include/brotli/encode.h:100-116). As in the JAX package, modes 1
+    and 2 stream with the generic context model."""
+
+    def __init__(self, quality=11, lgwin=22, lgblock=0, mode=0,
+                 large_window=False, *, encoder="auto", backend="auto",
+                 device=None, dp=None):
+        _check_routes(encoder, backend)
+        self.params = _sanitize_params(quality, lgwin, lgblock,
+                                       large_window)
+        self._large = large_window
+        self.mode = mode
+        self._route = dict(backend=backend, device=device, dp=dp)
+        self._buf = bytearray()
+        self._started = False
         self._finished = False
-        self._native = native.StreamEncoder(self.params[0],
-                                            self.params[1])
+        self._bw = BitWriter()
+        self._history = bytearray()
+        self._ring = None
+        self._native = None
+        if encoder != "python" and mode == 0:
+            self._native = native.StreamEncoder(self.params[0],
+                                                self.params[1])
+
+    def _ensure_header(self):
+        if not self._started:
+            bitstream.write_stream_header(self._bw, self.params[1])
+            self._started = True
 
     def process(self, chunk: bytes) -> bytes:
         if self._finished:
             raise ValueError("encoder already finished")
-        return self._native.process(bytes(chunk))
+        if self._native is not None:
+            return self._native.process(bytes(chunk))
+        self._buf += chunk
+        return b""
+
+    def _emit_buffered(self, is_last: bool):
+        quality, lgwin, lgblock = self.params
+        self._ensure_header()
+        if not self._buf:
+            if is_last:
+                bitstream.write_last_empty(self._bw)
+            return
+        data = bytes(self._history) + bytes(self._buf)
+        arr = np.frombuffer(data, dtype=np.uint8)
+        start = len(self._history)
+        large = self._large and lgwin > C.MAX_WINDOW_BITS
+        with trace.stage("match-find"):
+            matches = find_matches(arr, C.max_backward_distance(lgwin),
+                                   quality, large=large, **self._route)
+        # clip matches to the new region (window lookback still works);
+        # the split comes first, so a match straddling `start` is cut
+        # there as in the JAX package
+        m, lens, dists, flags = matcher.split_matches_at(
+            *matches, [start, len(arr)])
+        keep = m >= start
+        self._ring = _write_blocks(
+            self._bw, arr, start, len(arr),
+            (m[keep], lens[keep], dists[keep], flags[keep]),
+            lgblock, is_last, self._ring, quality=quality, large=large)
+        self._history = bytearray(data[-(1 << lgwin):])
+        self._buf.clear()
+
+    def _take(self) -> bytes:
+        out = self._bw.getvalue()
+        self._bw = BitWriter()
+        return out
 
     def emit_metadata(self, payload: bytes) -> bytes:
         """Flush buffered input, then write one metadata block
         (byte-aligned, opaque to decompression)."""
         if self._finished:
             raise ValueError("encoder already finished")
-        return self._native.emit_metadata(bytes(payload))
+        if self._native is not None:
+            return self._native.emit_metadata(bytes(payload))
+        self._ensure_header()
+        self._emit_buffered(is_last=False)
+        bitstream.write_metadata_block(self._bw, payload)
+        return self._take()
 
     def flush(self) -> bytes:
         if self._finished:
             return b""
-        return self._native.flush()
+        if self._native is not None:
+            return self._native.flush()
+        self._emit_buffered(is_last=False)
+        # empty metadata block byte-aligns the stream (decodable prefix)
+        self._bw.write(0, 1)   # ISLAST
+        self._bw.write(3, 2)   # MNIBBLES code -> metadata block
+        self._bw.write(0, 1)   # reserved
+        self._bw.write(0, 2)   # MSKIPBYTES = 0
+        self._bw.align_to_byte()
+        return self._take()
 
     def finish(self) -> bytes:
         if self._finished:
             return b""
+        if self._native is not None:
+            self._finished = True
+            return self._native.finish()
+        self._ensure_header()
+        self._emit_buffered(is_last=True)
         self._finished = True
-        return self._native.finish()
+        self._bw.align_to_byte()
+        return self._take()

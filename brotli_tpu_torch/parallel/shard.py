@@ -77,28 +77,33 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
     the port's one-shot encoder (enc/encoder.encode on `device`), as in
     the JAX package.
 
-    Not ported yet, and raising NotImplementedError: use_device=False,
-    where the JAX package takes its host vectorized matcher (ROADMAP
-    M13, second slice)."""
-    dev = resolve(device)
+    `use_device=False` finds every shard's matches with the host
+    vectorized matcher (4 shards by default, as in the JAX package) and
+    resolves no device unless serializer="device" asks for one; an
+    input under n_shards * 64 KiB then takes `encode` with
+    backend="numpy"."""
     if gather not in ("host", "collective"):
         raise ValueError(f"unknown gather {gather!r}")
     if serializer not in ("native", "device", "python"):
         raise ValueError(f"unknown serializer {serializer!r}")
-    if not use_device:
-        raise NotImplementedError(
-            "use_device=False takes the host vectorized matcher "
-            "(ROADMAP M13, second slice)")
     raw = bytes(data)
     n = len(raw)
-    if n_shards is None:
-        n_shards = max(torch.cuda.device_count(), 1) \
-            if dev.type == "cuda" else 1
+    if use_device:
+        dev = resolve(device)
+        if n_shards is None:
+            n_shards = max(torch.cuda.device_count(), 1) \
+                if dev.type == "cuda" else 1
+        mesh = _mesh_devices(dev, n_shards)
+    else:
+        dev = resolve(device) if serializer == "device" else None
+        n_shards = 4 if n_shards is None else n_shards
+        mesh = None
     if n == 0 or n < n_shards * (1 << 16):
-        return encode(raw, quality=quality, lgwin=lgwin, device=dev, dp=dp)
-    return _compress_sharded(raw, quality, lgwin, n_shards, dev,
-                             _mesh_devices(dev, n_shards), gather=gather,
-                             serializer=serializer, dp=dp)
+        return encode(raw, quality=quality, lgwin=lgwin, device=dev, dp=dp,
+                      backend="auto" if use_device else "numpy")
+    return _compress_sharded(raw, quality, lgwin, n_shards, dev, mesh,
+                             gather=gather, serializer=serializer, dp=dp,
+                             use_device=use_device)
 
 
 def _mesh_devices(device, n_shards):
@@ -111,11 +116,13 @@ def _mesh_devices(device, n_shards):
 
 
 def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
-                      *, gather="host", serializer="native", dp=None):
+                      *, gather="host", serializer="native", dp=None,
+                      use_device=True):
     """compress_sharded past its checks and routing: match finding (on
-    the mesh `mesh`, a device per shard, or with mesh=None one shard
-    after another on `device`), the split at metablock bounds, the entry
-    rings, serialization and the gather. The input holds at least
+    the mesh `mesh`, a device per shard, with mesh=None one shard after
+    another on `device`, or with use_device=False by the host vectorized
+    matcher), the split at metablock bounds, the entry rings,
+    serialization and the gather. The input holds at least
     n_shards * 64 KiB."""
     if mesh is not None and len(mesh) != n_shards:
         raise ValueError(f"{len(mesh)} mesh devices for {n_shards} shards")
@@ -124,7 +131,11 @@ def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
     max_distance = C.max_backward_distance(lgwin)
 
     # Stage 1: match finding per shard.
-    if mesh is None:
+    if not use_device:
+        shard_devs = [device] * n_shards
+        shard_matches = _find_matches_host(arr, bounds, max_distance,
+                                           quality)
+    elif mesh is None:
         shard_devs = [device] * n_shards
         shard_matches = _find_matches_sharded(arr, bounds, max_distance,
                                               quality, device, dp)
@@ -235,6 +246,21 @@ def _find_matches_sharded(arr, bounds, max_distance, quality, device,
         else:
             out.append(find_matches_device(shard, max_distance, quality,
                                            base=lo, device=device))
+    return out
+
+
+def _find_matches_host(arr, bounds, max_distance, quality):
+    """Per-shard match finding by the host vectorized matcher, the JAX
+    package's route without a device. Match positions are
+    shard-relative."""
+    out = []
+    for si in range(len(bounds) - 1):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        with trace.stage("match-find"):
+            out.append(matcher.find_matches_vectorized(
+                arr[lo:hi], max_distance,
+                num_candidates=4 if quality >= 5 else 2,
+                use_dict=quality >= 5, base=lo))
     return out
 
 

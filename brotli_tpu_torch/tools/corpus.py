@@ -66,3 +66,55 @@ def build_corpus(size: int = 16 << 20, seed: int = 0,
     text = b"".join(parts)[:n_text]
     tail = rng.integers(0, 256, size=n_random, dtype=np.uint8).tobytes()
     return head + text + tail
+
+
+def base64_page(corpus: bytes, size: int, seed: int = 0) -> bytes:
+    """`size` bytes of markup made from `corpus`: slices of it as text,
+    each followed by an inline image whose payload is the base64 of
+    another slice (`<img src="data:image/png;base64,...">`), the input
+    of base64 mode (enc/base64_mode.py)."""
+    import base64
+    rng = np.random.default_rng(seed)
+    parts, have = [], 0
+    while have < size:
+        t0, b0 = rng.integers(0, len(corpus) - (64 << 10), size=2)
+        text = corpus[t0:t0 + int(rng.integers(8 << 10, 48 << 10))]
+        blob = base64.b64encode(
+            corpus[b0:b0 + int(rng.integers(1 << 10, 12 << 10))])
+        piece = text + b'\n<img src="data:image/png;base64,' + blob + \
+            b'">\n'
+        parts.append(piece)
+        have += len(piece)
+    return b"".join(parts)[:size]
+
+
+def custom_dictionary(sample: bytes, prefix_size: int = 16 << 10,
+                      max_words: int = 256) -> bytes:
+    """A serialized shared dictionary (format/shared_dictionary.py) drawn
+    from `sample` by tools/dictgen: a raw prefix of `prefix_size` bytes
+    (its block-coverage engine) and one custom word list of the
+    8-byte strings that recur most in `sample` (its suffix sort and LCP
+    scan; a power of two of them, at most `max_words`), with the
+    identity transform only."""
+    from ..format import shared_dictionary as shd
+    from . import dictgen
+    prefix = dictgen.generate(sample, prefix_size)
+    arr = np.frombuffer(sample, np.uint8)
+    sa = dictgen.suffix_sort(arr, 3)  # ordered by their first 8 bytes
+    lcp = dictgen._lcp_adjacent(arr, sa, 8)
+    # a run of k adjacent suffixes sharing 8 bytes: a string seen k + 1
+    # times
+    same = np.concatenate([[False], lcp >= 8, [False]]).astype(np.int8)
+    starts = np.flatnonzero(np.diff(same) == 1)
+    ends = np.flatnonzero(np.diff(same) == -1)
+    order = np.argsort(-(ends - starts), kind="stable")
+    words = [sample[int(sa[starts[i]]):int(sa[starts[i]]) + 8]
+             for i in order[:max_words]]
+    bits = int(np.log2(max(len(words), 1)))
+    data = b"".join(words[:1 << bits])
+    size_bits = [0] * 25
+    size_bits[8] = bits
+    wl = shd.WordList(size_bits, [0] * 9 + [len(data)] * 16, data)
+    tl = shd.TransformList([b""], [(0, shd.T_IDENTITY, 0)], [0])
+    return shd.serialize(prefixes=[prefix], word_lists=[wl],
+                         transform_lists=[tl], dictionaries=[(0, 0)])

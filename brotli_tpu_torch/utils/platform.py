@@ -6,7 +6,7 @@ call takes: the Python, torch and CUDA versions, the visible cards,
 whether the native host runtime loads, which CUDA kernel libraries are
 already built, and the route of each quality. `configure()` validates
 the port's route arguments (`encoder=`, `decoder=`, `serializer=`,
-`dp=`, which take the place of the JAX package's BROTLI_TPU_*
+`dp=`, `backend=`, which take the place of the JAX package's BROTLI_TPU_*
 variables) and returns the report with them; it sets nothing, since
 the port reads no environment variable.
 """
@@ -26,21 +26,32 @@ def routes() -> dict:
     """The route of each quality and entry point, with the thresholds
     read from enc/encoder (the conditions `encode` routes on)."""
     vec, dev = E._VECTOR_THRESHOLD >> 10, E.MIN_DEVICE_INPUT >> 10
+    lo, hi = E.HOST_DP_MIN >> 10, E.HOST_DP_MAX >> 20
     win = C.MAX_WINDOW_BITS
     return {
-        "q0-q9": f"native one-shot encoder; encoder='device' on {vec} KiB "
-                 f"or more, lgwin <= {win}: the device matcher (K2) and "
-                 f"the Python serializer",
+        "q0-q9": f"native one-shot encoder; the Python pipeline "
+                 f"(encoder='device' or 'python', base64, serialized "
+                 f"dictionaries, a dictionary in modes 1-2, lgwin > "
+                 f"{win}): the device matcher (K2) on {vec} KiB or more "
+                 f"with backend='auto', else the host vectorized matcher, "
+                 f"the greedy host matcher under {vec} KiB, then the "
+                 f"Python serializer",
         "q10-q11": f"mode 0, {dev} KiB or more, lgwin <= {win}: the device "
                    f"DP (K1, K3, K4) and the native serializer, else "
-                   f"native; encoder='device' in modes 1 and 2 on {dev} "
-                   f"KiB or more: the device DP and the Python serializer",
+                   f"native; the Python pipeline: the device DP on {dev} "
+                   f"KiB or more with backend='auto', else the host DP "
+                   f"from {lo} KiB to {hi} MiB (the cost-model parse "
+                   f"beyond), then the Python serializer",
+        "streaming": "Compressor mode 0: the native stream encoder; modes "
+                     "1-2: the Python pipeline at each flush",
         "compress_sharded": "device matcher (q<=9) or DP (q>=10) per "
                             "shard, one card per shard where enough are "
-                            "visible; serializer "
+                            "visible; use_device=False: the host "
+                            "vectorized matcher, 4 shards; serializer "
                             + " | ".join(SERIALIZERS),
         "decompress": "decoder " + " | ".join(DECODERS) + " (native by "
-                      "default; device: native parse, LZ resolve K5)",
+                      "default; device: native parse, LZ resolve K5; "
+                      "custom dictionary words: python)",
     }
 
 
@@ -82,7 +93,8 @@ def info() -> dict:
     }
 
 
-def configure(encoder=None, decoder=None, serializer=None, dp=None):
+def configure(encoder=None, decoder=None, serializer=None, dp=None,
+              backend=None):
     """Validate the route arguments (None = the default) and return
     `info()` with them under "config". Raises ValueError on an unknown
     value instead of ignoring it."""
@@ -97,9 +109,12 @@ def configure(encoder=None, decoder=None, serializer=None, dp=None):
             f"serializer must be native|python|device: {serializer}")
     if dp is not None and not isinstance(dp, DPConfig):
         raise ValueError(f"dp must be a DPConfig: {dp!r}")
+    if backend is not None and backend not in E.BACKENDS:
+        raise ValueError(f"backend must be auto|numpy: {backend}")
     report = info()
     report["config"] = {
         "encoder": encoder or "auto", "decoder": decoder or "native",
         "serializer": serializer or "native",
-        "dp": repr(dp if dp is not None else DPConfig())}
+        "dp": repr(dp if dp is not None else DPConfig()),
+        "backend": backend or "auto"}
     return report

@@ -84,14 +84,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
      card against the CPU on 512 KiB; compress_sharded(corpus,
      quality=5, serializer="python") (K2's launches; its size beside
      phase 6's native-serializer stream), decoded natively; the Python
-     decoder on a 4 MiB q5 stream of that route through decompress
+     decoder on a 1 MiB q5 stream of that route through decompress
      (decoder="python") and through Decompressor(decoder="python") fed
-     1 MiB pieces under a 256 KiB output limit; the deferred parse
+     64 KiB pieces under a 64 KiB output limit; the deferred parse
      (Decoder.defer_lz) of phase 11's 4 MiB q11 stream, its literals
      and copies equal to native.parse_stream's, resolved by K5 on the
      card to the stream's bytes and K5 held bitwise against its plain
      version on it; the phase's wall;
- 15. print the kernels line (launches on each kernel's path, errors,
+ 15. the host pipeline's routes on the card, each with its
+     exact launches, its wall and its stream decoded: Compressor(q11,
+     mode=1) on 4 MiB in flushed 1 MiB pieces (K1, K3, K4 once a flush,
+     every flushed prefix decoding on its own; cuda = cpu on 512 KiB in
+     256 KiB pieces); StreamingEncoder(q5, mode=2) the same (K2 once a
+     flush; cuda = cpu on 1 MiB); compress(q5, encoder="device") with a
+     64 KiB raw dictionary, in base64 mode on a page of inline images,
+     and with a serialized dictionary of a prefix and custom words drawn
+     by tools/dictgen (K2 once each; the last decoded by the Python
+     decoder); and with backend="numpy" encoder="python" at q11 on
+     256 KiB (the host DP), at q5 on 1 MiB and compress_sharded(q5,
+     use_device=False) on 4 MiB, no kernel launched;
+ 16. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
@@ -1238,6 +1250,24 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
                  "single-process mesh, or does not decode")
 
 
+def segments(n, seg, adv):
+    """The segments a finder cuts `n` bytes into: `adv` apart once `n`
+    exceeds `seg` (the matcher's window history), else one."""
+    return len(range(0, n, adv if n > seg else seg))
+
+
+def launched(label, fn, want):
+    """(result, seconds, launches) of fn(), exiting unless its kernel
+    launches are exactly `want` (kernels launched no time left out)."""
+    from brotli_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    out, wall = timed(fn)
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if got != want:
+        sys.exit(f"chip_smoke: {label} launched {got}, not {want}")
+    return out, wall, got
+
+
 def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
                                   dev=torch.device("cuda")):
     """Phase 14: the routes of the Python serializer (encoder="device"
@@ -1252,19 +1282,8 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
     from brotli_tpu_torch.parallel.shard import compress_sharded
     from brotli_tpu_torch.utils import trace
 
-    def segments(n, seg, adv):
-        return len(range(0, n, adv if n > seg else seg))
-
     t_phase = time.perf_counter()
     print("[14] the Python serializer and decoder", flush=True)
-
-    def launched(label, fn, want):
-        kernels.reset_launches()
-        out, wall = timed(fn)
-        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        if got != want:
-            sys.exit(f"chip_smoke: {label} launched {got}, not {want}")
-        return out, wall, got
 
     # q5 through the device matcher and the Python serializer: K2 once
     # per matcher segment (4 on the 16 MiB corpus)
@@ -1339,11 +1358,12 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
         sys.exit("chip_smoke: one shard through the Python serializer "
                  "differs from encoder='device'")
 
-    # the Python decoder on a 4 MiB q5 stream of the device route
-    s5 = bt.compress(part, quality=5, encoder="device", device=dev)
+    # the Python decoder on a 1 MiB q5 stream of the device route
+    one = corpus[:1 << 20]
+    s5 = bt.compress(one, quality=5, encoder="device", device=dev)
     back, wall_py = timed(lambda: bt.decompress(s5, decoder="python"))
     _, wall_nat = timed(lambda: bt.decompress(s5))
-    if back != part or back != bt.decompress(s5):
+    if back != one or back != bt.decompress(s5):
         sys.exit("chip_smoke: the Python decoder differs from the native")
 
     def stream_in_pieces():
@@ -1355,11 +1375,11 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
         while not d.is_finished():
             piece = b""
             if d.can_accept_more_data() and pos < len(s5):
-                piece = s5[pos:pos + (1 << 20)]
+                piece = s5[pos:pos + (64 << 10)]
                 pos += len(piece)
-            got.append(d.process(piece, output_buffer_limit=256 << 10))
+            got.append(d.process(piece, output_buffer_limit=64 << 10))
             calls += 1
-            if len(got[-1]) > 256 << 10:
+            if len(got[-1]) > 64 << 10:
                 sys.exit("chip_smoke: Decompressor exceeded its limit")
             if (pos == len(s5) and not piece and not got[-1]
                     and not d.is_finished()):
@@ -1367,11 +1387,11 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
         return b"".join(got), calls
 
     (streamed, calls), wall_st = timed(stream_in_pieces)
-    print(f"    Python decoder, 4 MiB q5 stream ({len(s5)} B): decompress "
-          f"{wall_py:.3f} s, Decompressor in 1 MiB pieces at a 256 KiB "
+    print(f"    Python decoder, 1 MiB q5 stream ({len(s5)} B): decompress "
+          f"{wall_py:.3f} s, Decompressor in 64 KiB pieces at a 64 KiB "
           f"limit {wall_st:.3f} s ({calls} calls), native {wall_nat:.3f} s",
           flush=True)
-    if streamed != part:
+    if streamed != one:
         sys.exit("chip_smoke: Decompressor(decoder='python') differs")
 
     # the deferred parse of phase 11's 4 MiB q11 stream, resolved by K5
@@ -1413,6 +1433,165 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
         sys.exit("chip_smoke: K5 disagrees with its plain version on the "
                  "deferred parse")
     print(f"    phase 14 wall: {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def fed(enc, data, piece):
+    """`data` through a streaming encoder in `piece`-byte pieces, each
+    flushed: (stream, [(flushed prefix, the input it holds)])."""
+    out, prefixes = b"", []
+    for lo in range(0, len(data), piece):
+        out += enc.process(data[lo:lo + piece]) + enc.flush()
+        prefixes.append((out, data[:lo + piece]))
+    return out + enc.finish(), prefixes
+
+
+def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
+                         mib=1 << 20):
+    """Phase 15: the routes of the Python pipeline on `dev` (the host
+    matchers, the host DP, base64 mode, serialized dictionaries):
+    Compressor in modes 1 and 2, a raw dictionary, base64 mode, a
+    serialized dictionary with custom words, and backend="numpy"; each
+    with its exact launches, its wall and its stream decoded. `mib`
+    scales every size (a smaller one rehearses the phase on the CPU);
+    the corpus holds at least 11 of them."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch.enc.encoder import StreamingEncoder
+    from brotli_tpu_torch.format import shared_dictionary as shd
+    from brotli_tpu_torch.ops import matcher as PM, optimal as OPT
+    from brotli_tpu_torch.parallel.shard import compress_sharded
+    from brotli_tpu_torch.tools.corpus import base64_page, custom_dictionary
+
+    t_phase = time.perf_counter()
+    print("[15] the host pipeline's routes on the card", flush=True)
+    part = corpus[:4 * mib]
+
+    def check_flushed(label, got, data):
+        out, prefixes = got
+        for prefix, held in prefixes:  # each flushed prefix on its own
+            if bt.decompress(prefix + b"\x03") != held:
+                sys.exit(f"chip_smoke: a flushed prefix of {label} does "
+                         f"not decode")
+        if bt.decompress(out) != data:
+            sys.exit(f"chip_smoke: {label} does not decode")
+
+    # Compressor at q11 in mode 1, 1 MiB pieces: each flush runs the
+    # device DP over the window's history and the buffer (1, 2, 3, 4 MiB,
+    # one v3 segment each), then the Python serializer on the new MiB
+    nseg = sum(segments(k * mib, OPT.SEG_V3, OPT.SEG_V3)
+               for k in (1, 2, 3, 4))
+    got, wall, launches = launched(
+        "Compressor(q11, mode 1)",
+        lambda: fed(bt.Compressor(quality=11, mode=1, device=dev), part,
+                    mib),
+        {"suffix_min": nseg, "dp_scan": nseg, "dp_backtrack": nseg})
+    check_flushed("Compressor(q11, mode 1)", got, part)
+    print(f"    Compressor q11 mode 1, {len(part)} B in {mib} B pieces, "
+          f"flushed: "
+          f"{len(got[0])} B in {wall:.3f} s [{card}]; launches {launches}",
+          flush=True)
+    prefix = corpus[:mib // 2]
+    small = [fed(bt.Compressor(quality=11, mode=1, device=d), prefix,
+                 mib // 4)[0] for d in (dev, "cpu")]
+    print(f"    the same on {mib // 2} B in {mib // 4} B pieces: "
+          f"{dev.type} {len(small[0])} B, cpu {len(small[1])} B", flush=True)
+    if small[0] != small[1] or bt.decompress(small[0]) != prefix:
+        sys.exit("chip_smoke: Compressor(q11, mode 1) differs on the CPU")
+
+    # StreamingEncoder at q5 in mode 2: the device matcher (K2 once a
+    # flush: each buffer is one matcher segment)
+    def matcher_segments(n):
+        return segments(n, PM.SEG_BYTES, PM.SEG_BYTES // 2)
+
+    k2 = sum(matcher_segments(k * mib) for k in (1, 2, 3, 4))
+    got, wall, launches = launched(
+        "StreamingEncoder(q5, mode 2)",
+        lambda: fed(StreamingEncoder(quality=5, mode=2, device=dev), part,
+                    mib), {"chain_select": k2})
+    check_flushed("StreamingEncoder(q5, mode 2)", got, part)
+    print(f"    StreamingEncoder q5 mode 2, {len(part)} B in {mib} B "
+          f"pieces: {len(got[0])} B in {wall:.3f} s [{card}]; launches "
+          f"{launches}", flush=True)
+    prefix = corpus[:mib]
+    small = [fed(StreamingEncoder(quality=5, mode=2, device=d), prefix,
+                 mib // 2)[0] for d in (dev, "cpu")]
+    print(f"    the same on {mib} B in {mib // 2} B pieces: {dev.type} "
+          f"{len(small[0])} B, cpu {len(small[1])} B", flush=True)
+    if small[0] != small[1]:
+        sys.exit("chip_smoke: StreamingEncoder(q5, mode 2) differs on the "
+                 "CPU")
+
+    # a raw 64 KiB dictionary through encoder="device": the device
+    # matcher over the dictionary and the input, the lift into compound
+    # references
+    data = corpus[4 * mib:5 * mib]
+    raw = corpus[:mib // 16]
+    out, wall, launches = launched(
+        "compress(q5, encoder='device', dictionary)",
+        lambda: bt.compress(data, quality=5, encoder="device",
+                            dictionary=raw, device=dev),
+        {"chain_select": matcher_segments(len(raw) + len(data))})
+    if bt.decompress(out, dictionary=raw) != data:
+        sys.exit("chip_smoke: the raw-dictionary stream does not decode")
+    print(f"    compress q5 encoder='device', {len(data)} B with a "
+          f"{len(raw)} B raw dictionary: {len(out)} B in {wall:.3f} s "
+          f"[{card}]; launches {launches}", flush=True)
+
+    # base64 mode on a page of inline images made from the corpus
+    page = base64_page(corpus, mib + (mib >> 2))
+    out, wall, launches = launched(
+        "compress(q5, base64_mode)",
+        lambda: bt.compress(page, quality=5, base64_mode=True,
+                            encoder="device", device=dev),
+        {"chain_select": matcher_segments(len(page))})
+    if bt.decompress(out) != page:
+        sys.exit("chip_smoke: the base64-mode stream does not decode")
+    print(f"    compress q5 base64_mode, {len(page)} B page with "
+          f"{page.count(b';base64,')} inline images: {len(out)} B in "
+          f"{wall:.3f} s [{card}]; launches {launches}", flush=True)
+
+    # a serialized shared dictionary: a prefix and a custom word list
+    # that tools/dictgen draws from the corpus
+    blob = custom_dictionary(corpus[6 * mib:6 * mib + (64 << 10)])
+    sd = shd.parse(blob)
+    data = corpus[5 * mib:6 * mib]
+    out, wall, launches = launched(
+        "compress(q5, serialized dictionary)",
+        lambda: bt.compress(data, quality=5, dictionary=blob, device=dev),
+        {"chain_select": matcher_segments(len(sd.prefixes[0]) + len(data))})
+    back, wall_dec = timed(lambda: bt.decompress(out, dictionary=blob))
+    try:  # with the prefix alone, the custom words decode to other bytes
+        other = bt.decompress(out, dictionary=sd.prefixes[0])
+    except bt.error:
+        other = None
+    if back != data or other == data:
+        sys.exit("chip_smoke: the serialized-dictionary stream does not "
+                 "decode, or used no custom word")
+    print(f"    compress q5, {len(data)} B with a serialized dictionary "
+          f"({len(sd.prefixes[0])} B prefix, "
+          f"{len(sd.word_lists[0].data) // 8} custom words): {len(out)} B "
+          f"in {wall:.3f} s, the Python decoder {wall_dec:.3f} s [{card}]; "
+          f"launches {launches}", flush=True)
+
+    # backend="numpy": the host matchers and the host DP, no kernel
+    host = corpus[7 * mib:11 * mib]
+    for label, fn, data in (
+            ("encoder='python' q11 (the host DP)",
+             lambda: bt.compress(host[:mib // 4], quality=11,
+                                 encoder="python", backend="numpy"),
+             host[:mib // 4]),
+            ("encoder='python' q5 (the host vectorized matcher)",
+             lambda: bt.compress(host[:mib], quality=5, encoder="python",
+                                 backend="numpy"), host[:mib]),
+            ("compress_sharded(q5, use_device=False)",
+             lambda: compress_sharded(host[:4 * mib], quality=5,
+                                      use_device=False), host[:4 * mib])):
+        out, wall, _ = launched(label, fn, {})
+        if bt.decompress(out) != data:
+            sys.exit(f"chip_smoke: {label} does not decode")
+        print(f"    backend='numpy', {label}: {len(data)} B -> {len(out)} "
+              f"B in {wall:.3f} s [{card}]; no launch", flush=True)
+    print(f"    phase 15 wall: {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]", flush=True)
 
 
@@ -1738,7 +1917,10 @@ def main():
     # -- 14. the Python serializer and decoder ----------------------------
     python_serializer_and_decoder(corpus, q5_out, q11_4mib, card, dev)
 
-    # -- 15. report ------------------------------------------------------
+    # -- 15. the host pipeline's routes ----------------------------------
+    host_pipeline_routes(corpus, card, dev)
+
+    # -- 16. report ------------------------------------------------------
     path_launches = dict(launches, chain_select=launches_q5["chain_select"],
                          bitpack=launches_ds["bitpack"],
                          lz_resolve=launches_dec["lz_resolve"],

@@ -4,8 +4,10 @@ files, with the same bytes, permissions and times, writes the same
 standard output and error, and returns the same code. Inputs are small
 (under 256 KiB), so every compress takes the native route of both
 packages; `-d/-t --comment` read the metadata through the Python
-decoder of both. Also: one stdin-to-stdout run of `python -m
-brotli_tpu_torch.cli`, `-V`, and what the port does not have yet.
+decoder of both, and `--base64` and `-D` with a serialized dictionary
+run the Python pipeline of both (under 64 KiB, so its host matchers).
+Also: one stdin-to-stdout run of `python -m brotli_tpu_torch.cli` and
+`-V`.
 """
 
 import os
@@ -20,7 +22,8 @@ import pytest
 import brotli_tpu
 from brotli_tpu import cli as JC
 from brotli_tpu_torch import cli as PC
-from brotli_tpu_torch.tools.corpus import build_corpus
+from brotli_tpu_torch.tools.corpus import (base64_page, build_corpus,
+                                            custom_dictionary)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CORPUS = build_corpus(1 << 20)
@@ -171,18 +174,45 @@ def test_cli_version(capsys):
 def test_cli_unported_fail_per_file(argv, tmp_path, monkeypatch,
                                     capsysbinary):
     """`-d/-t --comment`, which the JAX package serves with its Python
-    decoder, now does what the JAX CLI does (code 0); what only the JAX
-    package's Python pipeline serves (--base64) fails like any file's
-    error: `{path}: {message}`, code 1."""
+    decoder, and --base64, which its Python pipeline serves (both
+    failed here until they were ported), do what the JAX CLI does:
+    the same files and output, code 0."""
     rc, out, err, tree = _run(PC.main, tmp_path / "torch", "brotli", argv,
                               {}, monkeypatch, capsysbinary)
-    if "--comment" in argv:
-        want = _run(JC.main, tmp_path / "jax", "brotli", argv, {},
-                    monkeypatch, capsysbinary)
-        assert (rc, out, err, tree) == want
-        assert rc == 0 and err == b""
-        return
-    assert rc == 1 and out == b""
-    assert err.startswith(argv[-1].encode() + b": ")
-    assert b"ROADMAP M13, second slice" in err
-    assert tree.keys() == _files().keys()
+    want = _run(JC.main, tmp_path / "jax", "brotli", argv, {},
+                monkeypatch, capsysbinary)
+    assert (rc, out, err, tree) == want
+    assert rc == 0 and err == b""
+
+
+def _serialized_files():
+    """A page with inline base64 images, and a serialized dictionary
+    drawn from the corpus (a prefix and a custom word list) with a
+    stream made with it."""
+    page = base64_page(CORPUS, 50_000, seed=2)
+    blob = custom_dictionary(CORPUS[400_000:400_000 + (64 << 10)])
+    # the prefix and the input stay under 64 KiB together: the CLI
+    # names no device, and the card's matcher takes 64 KiB or more
+    return {"page.html": page, "sd.bin": blob, "t40.txt": TEXT[:40_000],
+            "sd.txt.br": brotli_tpu.compress(TEXT, quality=5,
+                                             dictionary=blob)}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--base64", "-q", "5", "page.html"],
+    ["--base64", "-q", "1", "-c", "page.html"],
+    ["-D", "sd.bin", "-q", "5", "t40.txt"],
+    ["-d", "-D", "sd.bin", "sd.txt.br"]],
+    ids=["base64", "base64 q1 c", "D serialized", "d D serialized"])
+def test_cli_base64_and_serialized_dictionaries(argv, tmp_path, monkeypatch,
+                                                 capsysbinary):
+    """--base64 and -D with a serialized dictionary (its custom words
+    through the Python pipeline and the Python decoder): the JAX CLI's
+    files and output."""
+    extra = _serialized_files()
+    got = _run(PC.main, tmp_path / "torch", "brotli", argv, extra,
+               monkeypatch, capsysbinary)
+    want = _run(JC.main, tmp_path / "jax", "brotli", argv, extra,
+                monkeypatch, capsysbinary)
+    assert got == want
+    assert got[0] == 0 and got[2] == b""

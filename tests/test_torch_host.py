@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import brotli_tpu
 import brotli_tpu_torch as bt
 from brotli_tpu import native as JN
 from brotli_tpu.enc import bitstream as JB
@@ -336,32 +337,114 @@ def test_no_cuda_raises(monkeypatch, arr):
         O.find_matches_optimal(arr, MAXD)
 
 
-_SERIALIZED = b"\x91\x00" + bytes(30)
-_UNPORTED = {
-    "serialized dictionary": lambda d: bt.compress(d, dictionary=_SERIALIZED),
-    "base64 mode": lambda d: bt.compress(d, quality=5, base64_mode=True),
-    "dictionary with mode 1": lambda d: bt.compress(d, mode=1,
-                                                    dictionary=b"abc"),
-    "encoder python": lambda d: bt.compress(d, encoder="python"),
-    "encoder device at q5 under 64 KiB": lambda d: bt.compress(
-        d[:-1], quality=5, encoder="device", device="cpu"),
-    "Compressor mode 1": lambda d: bt.Compressor(mode=1),
-    "Decompressor serialized": lambda d: bt.Decompressor(_SERIALIZED),
-    "device decoder with a dictionary": lambda d: bt.decompress(
-        bt.compress(d, quality=1), dictionary=b"raw", decoder="device",
-        device="cpu"),
-    "compress_sharded use_device=False": lambda d: __import__(
-        "brotli_tpu_torch.parallel.shard", fromlist=["shard"])
-    .compress_sharded(d, use_device=False, device="cpu"),
+_SMALL = 16 << 10  # q11 under 256 KiB takes the host DP: seconds a call
+
+
+def _serialized_prefix():
+    """A serialized dictionary holding one raw prefix."""
+    from brotli_tpu_torch.format import shared_dictionary as shd
+    return shd.serialize(prefixes=[build_corpus(1 << 20)[600_000:608_192]])
+
+
+def _flushed(make, data):
+    """A stream of two pieces, flushed after each."""
+    c = make(mode=1)
+    half = len(data) // 2
+    return (c.process(data[:half]) + c.flush() + c.process(data[half:])
+            + c.flush() + c.finish())
+
+
+def _sharded(pkg, data):
+    return __import__(f"{pkg}.parallel.shard", fromlist=["shard"]) \
+        .compress_sharded(data, use_device=False)
+
+
+def _page(data):
+    """`data` with inline base64 images, as long as `data`."""
+    from brotli_tpu_torch.tools.corpus import base64_page
+    return base64_page(build_corpus(1 << 20), len(data))
+
+
+def _device_decode(dec, d, **kw):
+    return dec(JN.encode(d, 1, 22), dictionary=b"raw", **kw)
+
+
+# case -> (the port's call, the JAX package's call, its variables, the
+# dictionary the output decodes with, or "plain" for a decoded output)
+_CONVERTED = {
+    "serialized dictionary": (
+        lambda d: bt.compress(d, dictionary=_serialized_prefix()),
+        lambda d: brotli_tpu.compress(d, dictionary=_serialized_prefix()),
+        {}, "serialized"),
+    "base64 mode": (
+        lambda d: bt.compress(_page(d), quality=5, base64_mode=True,
+                              backend="numpy"),
+        lambda d: brotli_tpu.compress(_page(d), quality=5,
+                                      base64_mode=True),
+        {"BROTLI_TPU_BACKEND": "numpy"}, None),
+    "dictionary with mode 1": (
+        lambda d: bt.compress(d[:_SMALL], mode=1, dictionary=b"abc"),
+        lambda d: brotli_tpu.compress(d[:_SMALL], mode=1,
+                                      dictionary=b"abc"), {}, b"abc"),
+    "encoder python": (
+        lambda d: bt.compress(d[:_SMALL], encoder="python"),
+        lambda d: brotli_tpu.compress(d[:_SMALL]),
+        {"BROTLI_TPU_ENCODER": "python"}, None),
+    "encoder device at q5 under 64 KiB": (
+        lambda d: bt.compress(d[:-1], quality=5, encoder="device",
+                              device="cpu"),
+        lambda d: brotli_tpu.compress(d[:-1], quality=5),
+        {"BROTLI_TPU_ENCODER": "device"}, None),
+    "Compressor mode 1": (
+        lambda d: _flushed(bt.Compressor, d[:_SMALL]),
+        lambda d: _flushed(brotli_tpu.Compressor, d[:_SMALL]), {}, None),
+    "Decompressor serialized": (
+        lambda d: bt.Decompressor(_serialized_prefix()).process(
+            brotli_tpu.compress(d, dictionary=_serialized_prefix())),
+        lambda d: brotli_tpu.Decompressor(_serialized_prefix()).process(
+            brotli_tpu.compress(d, dictionary=_serialized_prefix())),
+        {}, "plain"),
+    "device decoder with a dictionary": (
+        lambda d: _device_decode(bt.decompress, d, decoder="device",
+                                 device="cpu"),
+        lambda d: _device_decode(brotli_tpu.decompress, d),
+        {"BROTLI_TPU_DECODER": "device"}, "plain"),
+    "compress_sharded use_device=False": (
+        lambda d: _sharded("brotli_tpu_torch", d),
+        lambda d: _sharded("brotli_tpu", d), {}, None),
 }
 
 
-@pytest.mark.parametrize("case", list(_UNPORTED))
-def test_unported_options_raise(case):
+@pytest.mark.parametrize("case", list(_CONVERTED))
+def test_unported_options_raise(case, monkeypatch):
     """What only the JAX package's Python pipeline, Python decoder and
-    host matcher serve raises NotImplementedError naming its item."""
-    with pytest.raises(NotImplementedError, match="M13, second slice"):
-        _UNPORTED[case](build_corpus(1 << 16))
+    host matchers served (and raised NotImplementedError here until
+    they were ported) gives the JAX package's bytes under its
+    variables, and each stream decodes. q11 runs on 16 KiB, where the
+    host DP takes it as it does under 256 KiB (tests/test_torch_host_dp
+    checks that threshold by a spy)."""
+    port, jax, env, dictionary = _CONVERTED[case]
+    data = build_corpus(1 << 16)
+    for k in list(os.environ):
+        if k.startswith("BROTLI_TPU_"):
+            monkeypatch.delenv(k)
+    got = port(data)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert got == jax(data)
+    if dictionary == "plain":
+        assert got == data
+        return
+    if dictionary == "serialized":
+        back = bt.decompress(got, dictionary=_serialized_prefix())
+        assert back == brotli_tpu.decompress(
+            got, dictionary=_serialized_prefix())
+    else:
+        back = bt.decompress(got, dictionary=dictionary)
+        assert JN.decode(got, compound=dictionary or b"") == back
+        assert bt.decompress(got, dictionary=dictionary,
+                             decoder="python") == back
+    assert back in (data, data[:-1], data[:_SMALL], _page(data))
 
 
 def test_decompress_rejects_garbage():
@@ -410,8 +493,12 @@ def test_profile_busy_time_is_the_union():
 def test_import_isolation():
     """(h) importing the port, one CPU compress, one CPU
     compress_sharded at q5 with each serializer, one CPU device decode,
-    a native compress, a Compressor/Decompressor round trip and the CLI
-    leave no JAX and no module of the JAX package behind."""
+    a native compress, a Compressor/Decompressor round trip, the CLI,
+    every module of the host matchers, the host DP, base64 mode and the
+    serialized dictionaries with a run of each (encoder="python" at q1,
+    q5 and q11, base64 mode, a serialized dictionary with custom words,
+    Compressor in mode 1, compress_sharded(use_device=False)) and the
+    tools leave no JAX and no module of the JAX package behind."""
     code = "\n".join([
         "import sys",
         "import brotli_tpu_torch as bt",
@@ -436,6 +523,29 @@ def test_import_isolation():
         "d = bt.Decompressor()",
         "assert d.process(out) == data and d.is_finished()",
         "assert cli.main(['-V']) == 0",
+        "from brotli_tpu_torch.enc import (base64_mode, custom_dict,",
+        "                                  optimal, static_dict)",
+        "from brotli_tpu_torch.format import shared_dictionary",
+        "from brotli_tpu_torch.tools import (dictgen, draw_diff,",
+        "                                    draw_histogram, optref)",
+        "from brotli_tpu_torch.tools.corpus import (base64_page,",
+        "                                           custom_dictionary)",
+        "small = data[:20_000]",
+        "for q in (1, 5, 11):",
+        "    out = bt.compress(small, quality=q, encoder='python')",
+        "    assert bt.decompress(out) == small",
+        "page = base64_page(data, 60_000)",
+        "out = bt.compress(page, quality=5, base64_mode=True)",
+        "assert bt.decompress(out, decoder='python') == page",
+        "blob = custom_dictionary(data[150_000:200_000], 4096, 64)",
+        "out = bt.compress(small, quality=5, dictionary=blob)",
+        "assert bt.decompress(out, dictionary=blob) == small",
+        "c = bt.Compressor(mode=1, quality=5, backend='numpy')",
+        "out = c.process(data[:100_000]) + c.flush() + c.finish()",
+        "assert bt.Decompressor(decoder='python').process(out) == "
+        "data[:100_000]",
+        "out = compress_sharded(data, quality=5, use_device=False)",
+        "assert bt.decompress(out) == data",
         "print(sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'brotli_tpu')))",
     ])

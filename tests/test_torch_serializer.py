@@ -14,7 +14,10 @@ the JAX package on the CPU.
       decoders;
   (d) `compress_sharded(serializer="python", device="cpu")` against the
       JAX package under BROTLI_TPU_SERIALIZER=python;
-  (e) what stays unported still raises.
+  (e) encoder="device" off those inputs (under 64 KiB, q11 under
+      256 KiB, beyond lgwin 24, with a dictionary, base64 mode) and a
+      base64 mask in `store_metablock`, which raised until the host
+      matchers and base64 mode were ported.
 
 The JAX package runs its device branches on the CPU with nothing in it
 edited, as in tests/test_torch_matcher.py and test_torch_encode.py:
@@ -34,6 +37,7 @@ import torch
 
 import brotli_tpu_torch as bt
 from brotli_tpu import native as JN
+from brotli_tpu.enc import base64_mode as JB64
 from brotli_tpu.enc import bitstream as JB
 from brotli_tpu.enc import block_split as JBS
 from brotli_tpu.enc import context_model as JCM
@@ -51,6 +55,7 @@ from brotli_tpu_torch.dec.decoder import Decoder
 from brotli_tpu_torch.enc import bitstream as PB
 from brotli_tpu_torch.enc import block_split as PBS
 from brotli_tpu_torch.enc import context_model as PCM
+from brotli_tpu_torch.enc import encoder as PE
 from brotli_tpu_torch.enc import entropy as PEN
 from brotli_tpu_torch.enc import literal_cost as PLC
 from brotli_tpu_torch.enc import matcher as PM_
@@ -60,7 +65,7 @@ from brotli_tpu_torch.format import constants as C
 from brotli_tpu_torch.ops import matcher as PM
 from brotli_tpu_torch.ops import optimal as O
 from brotli_tpu_torch.parallel import shard as PS
-from brotli_tpu_torch.tools.corpus import build_corpus
+from brotli_tpu_torch.tools.corpus import base64_page, build_corpus
 
 MAXD = C.max_backward_distance(22)
 SEG = 1 << 16
@@ -143,12 +148,36 @@ def test_store_metablock_matches_jax(parse, quality, mode, carried):
         assert Decoder().decompress(got[0]) == arr[:half].tobytes()
 
 
-def test_store_metablock_refuses_a_base64_mask(parse):
-    arr, matches = parse
-    cmds = PM_.matches_to_commands(*matches, 0, 1000)
-    with pytest.raises(NotImplementedError, match="M13, second slice"):
-        PB.store_metablock(PBW(), arr, 0, 1000, cmds, True,
-                           b64_mask=np.zeros(len(arr), bool))
+def test_store_metablock_refuses_a_base64_mask():
+    """A base64 mask (base64 mode's regions) forces a flat 6-bit literal
+    code on the literals it covers; each metablock equals the JAX
+    package's at every quality, for a block that starts in text and one
+    that starts inside a region (where the first block type is swapped
+    to 0), and the two-block stream decodes."""
+    page = base64_page(CORPUS, 1 << 16, seed=1)
+    arr = np.frombuffer(page, np.uint8)
+    starts, lengths = JB64.detect_regions(arr)
+    mask = JB64.region_mask(arr, starts, lengths)
+    matches = JB64.drop_matches_in_regions(
+        PM_.find_matches_vectorized(arr, MAXD, num_candidates=4,
+                                    use_dict=True), mask)
+    cut = int(starts[0]) + 10  # the second block starts in a region
+    matches = PM_.split_matches_at(*matches, [cut, len(arr)])
+    for quality in (1, 5, 9, 10):
+        streams = []
+        for B, BW in ((PB, PBW), (JB, JBW)):
+            bw, ring = BW(), None
+            B.write_stream_header(bw, 22)
+            for lo, hi in ((0, cut), (cut, len(arr))):
+                cmds = PM_.matches_to_commands(*matches, lo, hi)
+                ring = B.store_metablock(bw, arr, lo, hi - lo, cmds,
+                                         hi == len(arr), ring,
+                                         quality=quality, b64_mask=mask)
+            bw.align_to_byte()
+            streams.append(bw.getvalue())
+        assert streams[0] == streams[1]
+        assert JN.decode(streams[0]) == page
+        assert Decoder().decompress(streams[0]) == page
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -288,11 +317,11 @@ def test_compress_sharded_python_serializer(device_branch, quality):
     assert bt.decompress(got, decoder="python") == data
 
 
-# -- (e) what stays unported ----------------------------------------------
+# -- (e) what raised before the host matchers were ported ---------------
 
 _UNPORTED = {
     "q5 under 64 KiB": dict(size=(1 << 16) - 1, quality=5),
-    "q11 under 256 KiB in mode 1": dict(size=(1 << 18) - 1, quality=11,
+    "q11 under 256 KiB in mode 1": dict(size=32 << 10, quality=11,
                                         mode=1),
     "beyond lgwin 24": dict(quality=5, lgwin=25, large_window=True),
     "raw dictionary": dict(quality=5, mode=1, dictionary=b"abcdef"),
@@ -305,8 +334,49 @@ _UNPORTED = {
 
 
 @pytest.mark.parametrize("case", list(_UNPORTED))
-def test_encoder_device_off_its_inputs_raises(case):
+def test_encoder_device_off_its_inputs_raises(device_branch, case,
+                                              monkeypatch):
+    """encoder="device" off the inputs of the device finders alone
+    (which raised NotImplementedError until the host matchers were
+    ported) gives the JAX package's bytes under
+    BROTLI_TPU_ENCODER=device on its device branch, and decodes through the JAX package's native decoder and
+    both of the port's. "q11 under 256 KiB in mode 1" runs the host DP
+    on 32 KiB; just under 256 KiB it is the same finder, which the spy
+    below checks."""
     kw = dict(_UNPORTED[case])
     data = CORPUS[:kw.pop("size", 1 << 17)]
-    with pytest.raises(NotImplementedError, match="M13, second slice"):
-        bt.compress(data, encoder="device", device="cpu", **kw)
+    if kw.get("base64_mode"):
+        data = base64_page(CORPUS, len(data))
+    out = bt.compress(data, encoder="device", device="cpu", **kw)
+    device_branch.setenv("BROTLI_TPU_ENCODER", "device")
+    try:
+        want = JE.encode(data, **kw)
+    finally:
+        device_branch.delenv("BROTLI_TPU_ENCODER")
+    assert out == want
+    dic = kw.get("dictionary") or b""
+    assert JN.decode(out, compound=dic,
+                     large_window=kw.get("large_window", False)) == data
+    assert bt.decompress(out, dictionary=dic,
+                         large_window=kw.get("large_window", False)) == data
+    if case == "q11 under 256 KiB in mode 1":
+        assert Decoder().decompress(out) == data
+        # just under 256 KiB the finder is the same, the host DP (a spy
+        # that finds no match; the device DP must not run)
+        called = []
+
+        def host_dp(arr, *a, **k):
+            called.append(len(arr))
+            z = np.zeros(0, np.int64)
+            return z, z, z, z
+
+        def device_dp(*a, **k):
+            raise AssertionError("the device DP ran under 256 KiB")
+
+        monkeypatch.setattr(PE.host_dp, "find_matches_optimal", host_dp)
+        monkeypatch.setattr(PE, "find_matches_optimal", device_dp)
+        under = CORPUS[:(1 << 18) - 1]
+        out = bt.compress(under, quality=11, mode=1, encoder="device",
+                          device="cpu")
+        assert called == [len(under)]
+        assert bt.decompress(out) == under

@@ -144,10 +144,25 @@ def test_compress_sharded_needs_cuda(monkeypatch, data):
 @pytest.mark.parametrize("kwargs", [
     dict(use_device=False), dict(size=100_000, n_shards=2,
                                  use_device=False)])
-def test_unported_options_raise(data, kwargs):
+def test_unported_options_raise(data, kwargs, monkeypatch):
+    """use_device=False (which raised until the host matchers were
+    ported): the host vectorized matcher per shard, 4 shards by default,
+    the JAX package's bytes; no device is resolved, so it runs without
+    CUDA."""
+    kwargs = dict(kwargs)
     size = kwargs.pop("size", len(data))
-    with pytest.raises(NotImplementedError, match="M13"):
-        PS.compress_sharded(data[:size], device="cpu", **kwargs)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    called = []
+    real = PS._find_matches_host
+    monkeypatch.setattr(PS, "_find_matches_host",
+                        lambda arr, bounds, *a: called.append(len(bounds))
+                        or real(arr, bounds, *a))
+    out = PS.compress_sharded(data[:size], **kwargs)
+    assert out == JS.compress_sharded(data[:size], **kwargs)
+    n_shards = kwargs.get("n_shards", 4)
+    # under n_shards * 64 KiB, one stream of the one-shot encoder
+    assert called == ([n_shards + 1] if size >= n_shards << 16 else [])
+    _decodes(out, data[:size])
 
 
 @pytest.mark.parametrize("kwargs", [dict(), dict(size=0)])

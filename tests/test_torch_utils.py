@@ -88,7 +88,8 @@ def test_platform_info():
     (dict(encoder="gpu"), "encoder must be auto|native|device|python"),
     (dict(decoder="c"), "decoder must be native|python|device"),
     (dict(serializer="host"), "serializer must be native|python|device"),
-    (dict(dp="v1"), "dp must be a DPConfig")])
+    (dict(dp="v1"), "dp must be a DPConfig"),
+    (dict(backend="jax"), "backend must be auto|numpy")])
 def test_configure_refuses_unknown_values(kw, msg):
     with pytest.raises(ValueError, match=msg):
         platform.configure(**kw)
@@ -99,8 +100,11 @@ def test_configure_returns_the_report(monkeypatch):
     from brotli_tpu_torch import DPConfig
     env = dict(os.environ)
     rep = platform.configure(encoder="device", decoder="python",
-                             serializer="python", dp=DPConfig(mode="v1"))
+                             serializer="python", dp=DPConfig(mode="v1"),
+                             backend="numpy")
     assert rep["config"]["encoder"] == "device"
+    assert rep["config"]["backend"] == "numpy"
+    assert "host DP" in rep["routes"]["q10-q11"]
     assert "v1" in rep["config"]["dp"]
     assert dict(os.environ) == env  # it sets no variable
 
