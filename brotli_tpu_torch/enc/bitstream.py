@@ -16,6 +16,10 @@ from .entropy import lengths_to_codes, package_merge, write_huffman_code
 
 MAX_MLEN = 1 << 24
 
+# optional per-metablock bit accounting (diagnostics): set to a list
+# and store_metablock appends realized per-category bit totals
+ACCOUNT_SINK = None
+
 
 def write_stream_header(bw: BitWriter, window_bits: int) -> None:
     """WBITS encoding (RFC 9.1; inverse of c/dec/decode.c
@@ -696,6 +700,20 @@ def store_metablock(bw: BitWriter, data: np.ndarray, block_start: int,
         at = hidx[np.cumsum(dsw_info["block_lengths"])[:-1]]
         dist_sw = (at, dsw_info)
 
+    if ACCOUNT_SINK is not None:
+        _, ibits_ = plan["insert_extras"]
+        _, cbits_ = plan["copy_extras"]
+        _, dbits_ = plan["dist_extras"]
+        ACCOUNT_SINK.append({
+            "lit_bits": int(lit_bits.sum()),
+            "cmd_bits": int(cmd_bits.sum()),
+            "cmd_extra_bits": int(ibits_.sum() + cbits_.sum()),
+            "dist_bits": int(dist_bits.sum()),
+            "dist_extra_bits": int(dbits_.sum()),
+            "ncmd": ncmd, "nlit": nlit,
+            "ntypes": (ntypes, ntypes_i, ntypes_d),
+            "ntrees": (int(len(merged)) if multi else 1, n_dist_trees),
+        })
     values, nbits = _interleave_symbols(
         plan, (lit_vals, lit_bits), lanes, (cmd_vals, cmd_bits),
         (dist_vals, dist_bits), cmd_sw, dist_sw)

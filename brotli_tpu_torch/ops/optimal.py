@@ -1223,21 +1223,26 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
 
 
 def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
-                                 dp=None):
+                                 dp=None, seg=None):
     """The q10/q11 parse of the mesh (optimal_jax.find_matches_optimal_
     sharded): shard si's DP runs on devices[si]; a device named more
     than once queues its shards there.
 
-    Per shard, on a thread pool: up to SEG_V3 bytes of the input before
+    Per shard, on a thread pool: up to `seg` bytes of the input before
     it as candidate window history, so matches reach across the seam;
     the seed parse (native for the shard that
     starts the stream, else the device matcher, K2, on its device); the
     cost tables; the dictionary probe. Then per round k every shard's
     k-th segment runs `dp_v3_segment` on its device, all padded to one
-    common bucket; a shard already out of segments runs a zero one, as
-    every device runs the JAX mesh's one program. Then per shard: the
-    collect, coalesce, bridge and dictionary post-pass, keeping the
+    common bucket. A shard already out of segments runs nothing: the
+    JAX mesh's one program runs a zero segment there and drops its
+    result, but the port queues each device on its own. Then per shard:
+    the collect, coalesce, bridge and dictionary post-pass, keeping the
     matches past its halo.
+
+    `seg`: the DP segment, which is also the halo's cap; None means
+    SEG_V3 with the BUCKETS_V3 pads, any other size pads to itself (the
+    JAX package's dry run sets SEG_V3 and its buckets to 64 KiB so).
 
     Of `dp` (a DPConfig, None = the default) only what the JAX mesh's
     functions read reaches this path: ring_scan and icell (K8 in place
@@ -1252,10 +1257,11 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
     if len(devices) != n_shards:
         raise ValueError(f"{n_shards} shards, {len(devices)} devices")
     devs = [resolve(d) for d in devices]
+    seg, buckets = (SEG_V3, BUCKETS_V3) if seg is None else (seg, [seg])
 
     def prep_shard(si):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
-        h = min(int(max_distance), lo, SEG_V3)
+        h = min(int(max_distance), lo, seg)
         buf = np.ascontiguousarray(arr[lo - h:hi])
         base = lo - h
         with trace.stage("dp.seed"):
@@ -1271,9 +1277,9 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
 
     # one common bucket: the JAX mesh compiles one program for every
     # (shard, round)
-    b = max(_bucket_v3(min(len(s["buf"]), SEG_V3)) for s in shards)
+    b = max(_bucket_in(min(len(s["buf"]), seg), buckets) for s in shards)
     capm = b // CAPM_DIV
-    rounds = max((len(s["buf"]) + SEG_V3 - 1) // SEG_V3 for s in shards)
+    rounds = max((len(s["buf"]) + seg - 1) // seg for s in shards)
     for s, dev in zip(shards, devs):
         s["dtabs"] = device_tables(s["tables"], dev)
         s["icell"] = torch.from_numpy(s["tables"][4].astype(np.int32)).to(
@@ -1281,19 +1287,16 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
 
     handles = [[] for _ in range(n_shards)]
     for k in range(rounds):
-        lo_k = k * SEG_V3
+        lo_k = k * seg
         for si, (s, dev) in enumerate(zip(shards, devs)):
             nbuf = len(s["buf"])
-            hi_k = min(lo_k + SEG_V3, nbuf)
+            if lo_k >= nbuf:  # shard exhausted
+                continue
+            hi_k = min(lo_k + seg, nbuf)
             padded = np.zeros(b, np.uint8)
-            if lo_k >= nbuf:  # shard exhausted: a zero segment
-                z = torch.zeros(b // 128, dtype=torch.int64, device=dev)
-                zd = torch.zeros(b // 64, dtype=torch.int64, device=dev)
-                npos, spos, slen, sdist, dloc, dval = 0, z, z, z, zd, zd
-            else:
-                padded[:hi_k - lo_k] = s["buf"][lo_k:hi_k]
-                npos, spos, slen, sdist, dloc, dval = segment_inputs(
-                    s["buf"], [s["seed"]], s["dict_g"], lo_k, hi_k, b, dev)
+            padded[:hi_k - lo_k] = s["buf"][lo_k:hi_k]
+            npos, spos, slen, sdist, dloc, dval = segment_inputs(
+                s["buf"], [s["seed"]], s["dict_g"], lo_k, hi_k, b, dev)
             bits_tab, ctx_tab, copyq, distq = s["dtabs"]
             with trace.stage("dp.dispatch"):
                 packed, full = dp_v3_segment(
@@ -1301,9 +1304,7 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
                     bits_tab, ctx_tab, copyq, distq, spos, slen, sdist,
                     dloc, dval, lo_k + s["base"], capm=capm, cfg=cfg,
                     icell_q=s["icell"])
-            if lo_k < nbuf:
-                handles[si].append((lo_k, capm, packed, full,
-                                    fetch.mark(dev)))
+            handles[si].append((lo_k, capm, packed, full, fetch.mark(dev)))
 
     out = []
     for si, s in enumerate(shards):

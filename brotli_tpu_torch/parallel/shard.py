@@ -117,13 +117,14 @@ def _mesh_devices(device, n_shards):
 
 def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
                       *, gather="host", serializer="native", dp=None,
-                      use_device=True):
+                      use_device=True, seg=None):
     """compress_sharded past its checks and routing: match finding (on
     the mesh `mesh`, a device per shard, with mesh=None one shard after
     another on `device`, or with use_device=False by the host vectorized
     matcher), the split at metablock bounds, the entry rings,
     serialization and the gather. The input holds at least
-    n_shards * 64 KiB."""
+    n_shards * 64 KiB. `seg`: the mesh DP's segment at q >= 10
+    (ops.optimal.find_matches_optimal_sharded; None = SEG_V3)."""
     if mesh is not None and len(mesh) != n_shards:
         raise ValueError(f"{len(mesh)} mesh devices for {n_shards} shards")
     arr = np.frombuffer(raw, dtype=np.uint8)
@@ -143,7 +144,7 @@ def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
         shard_devs = [resolve(d) for d in mesh]
         if quality >= 10:
             shard_matches = find_matches_optimal_sharded(
-                arr, bounds, max_distance, shard_devs, dp=dp)
+                arr, bounds, max_distance, shard_devs, dp=dp, seg=seg)
         else:
             shard_matches = _find_matches_mesh(arr, bounds, max_distance,
                                                quality, shard_devs)

@@ -69,7 +69,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      with 8 shards, the card's bytes against the CPU's on a 1 MiB
      prefix; q11 on the mesh (ops.optimal.find_matches_optimal_sharded,
      4 shards over [cuda:0] * 4, default DP and ring scan; K1, K3 or K8
-     and K4 once a shard a round, K2 once a shard after the first; peak
+     and K4 once a real segment of a shard (a shard out of segments
+     runs none), K2 once a shard after the first; peak
      device memory), the card's bytes against the CPU's on 256 KiB;
      gather="collective" (phase 6's bytes); compress_sharded_mp in 4
      processes on the card through tools/mp_compress (gloo, a file://
@@ -102,8 +103,24 @@ Phases (any failure ends the run with a non-zero exit and no result):
      by tools/dictgen (K2 once each; the last decoded by the Python
      decoder); and with backend="numpy" encoder="python" at q11 on
      256 KiB (the host DP), at q5 on 1 MiB and compress_sharded(q5,
-     use_device=False) on 4 MiB, no kernel launched;
- 16. print the kernels line (launches on each kernel's path, errors,
+     use_device=False) on 1 MiB, no kernel launched;
+ 16. the last slice: tools/stress on the card (STRESS_TRIALS seeded
+     trials, every encoder route in turn -- native, python, the
+     Compressor, a raw dictionary, q10/q11 on the card with each DP
+     variant, encoder="device", the Compressor at q10/q11 in modes 1-2,
+     a serialized dictionary, base64 mode, compress_sharded with each
+     serializer -- and every decoder on each stream; zero failures, and
+     K1-K8 each launched at least once, per route as printed); the
+     dissector and parse replay over the native q5 and q11 streams of
+     1 MiB of the corpus (dissect's summary lines; each replay decoded,
+     its size beside the stream's); entry.entry() on the card against
+     the CPU ((count, packed) equal; K2 once); entry.dryrun_multichip(8)
+     over [cuda:0] * 8 (K2 once a block, once a q5 shard and once a q11
+     shard after the first; K1, K3, K4 once a 64 KiB DP segment), its
+     numbers and streams equal to the same call on the CPU (run in a
+     process of its own from the phase's start, beside the card's
+     work); the phase's wall;
+ 17. print the kernels line (launches on each kernel's path, errors,
      times and bounds), the card again, and the final JSON line.
 
 Phase 3 also holds K5 on seeded command lists at 16 Mi outputs (all
@@ -121,6 +138,7 @@ the card's time for each launch of one K6 and one K5 call.
 Run from the repository root: python3 chip_smoke.py
 """
 
+import io
 import json
 import os
 import pathlib
@@ -133,6 +151,24 @@ import time
 
 import numpy as np
 import torch
+
+# phase 16's stress: seed and trials (every route twice; see
+# brotli_tpu_torch/tools/stress.py)
+STRESS_SEED = 2026
+STRESS_TRIALS = 28
+# phase 16's dry run on the CPU, in a process of its own beside the
+# stress (~50 s of plain versions; four threads, so the stress keeps
+# cores): its numbers and streams into argv[1]
+DRYRUN_CPU = """
+import json, pathlib, sys, torch
+from brotli_tpu_torch import entry
+torch.set_num_threads(4)
+r = entry.dryrun_multichip(8, "cpu")
+d = pathlib.Path(sys.argv[1])
+(d / "q5").write_bytes(r["q5"])
+(d / "q11").write_bytes(r["q11"])
+(d / "numbers.json").write_text(json.dumps([r["matches"], r["hist_total"]]))
+"""
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the non-tensor
 # 32-bit rate, which int32 compare/select work cannot exceed
@@ -1153,6 +1189,8 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
     bufs = [int(bounds[i + 1] - bounds[i]) +
             min(maxd, int(bounds[i]), OPT.SEG_V3) for i in range(4)]
     rounds = max(-(-b // OPT.SEG_V3) for b in bufs)
+    # a shard out of segments runs none (the JAX mesh runs a zero one)
+    nseg = sum(-(-b // OPT.SEG_V3) for b in bufs)
     adv = [PM.SEG_BYTES // 2 if b > PM.SEG_BYTES else PM.SEG_BYTES
            for b in bufs]
     want_k2 = sum(-(-b // a) for b, a in zip(bufs[1:], adv[1:]))
@@ -1175,7 +1213,8 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
         print(f"    {n} B -> {len(out)} B (ratio {n / len(out):.4f}) in "
               f"{wall:.3f} s = {n / wall / 1e6:.3f} MB/s [{card}]; peak "
               f"device memory {peak / 2**30:.2f} GiB; launches {launched} "
-              f"({rounds} rounds of 4 shards; K2 expected {want_k2})",
+              f"({rounds} rounds of 4 shards, {nseg} segments; K2 "
+              f"expected {want_k2})",
               flush=True)
         if label == "default":
             print("    stages of this (traced) run:")
@@ -1183,33 +1222,28 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
         if bt.decompress(out) != corpus:
             sys.exit(f"chip_smoke: the q11 mesh ({label}) stream does not "
                      f"decode")
-        if launched != {"suffix_min": 4 * rounds, scan: 4 * rounds,
-                        "dp_backtrack": 4 * rounds, "chain_select": want_k2}:
+        if launched != {"suffix_min": nseg, scan: nseg,
+                        "dp_backtrack": nseg, "chain_select": want_k2}:
             sys.exit(f"chip_smoke: the q11 mesh ({label}) launched "
                      f"{launched}")
     # the card against the CPU, on 256 KiB in 4 shards with 128 KiB DP
     # segments in both (the real 2 MiB bucket would take minutes on the
     # host): the last two shards' halos reach the segment cap, so there
-    # are two rounds, with a zero segment for the first two shards
+    # are two rounds, the second with segments of those two shards only
     prefix = corpus[:256 << 10]
-    seg = OPT.SEG_V3, OPT.BUCKETS_V3
-    OPT.SEG_V3, OPT.BUCKETS_V3 = 1 << 17, [1 << 17]
-    try:
-        for label, cfg in (("default", OPT.DPConfig()),
-                           ("ring_scan", OPT.DPConfig(ring_scan=True))):
-            on_card = PS._compress_sharded(prefix, 11, 22, 4, dev, [dev] * 4,
-                                           dp=cfg)
-            t0 = time.perf_counter()
-            on_cpu = PS._compress_sharded(prefix, 11, 22, 4, cpu, [cpu] * 4,
-                                          dp=cfg)
-            print(f"    {label}, 256 KiB prefix, 4 shards, 128 KiB "
-                  f"segments: cuda {len(on_card)} B, cpu {len(on_cpu)} B "
-                  f"(cpu path {time.perf_counter() - t0:.1f} s)", flush=True)
-            if on_card != on_cpu or bt.decompress(on_card) != prefix:
-                sys.exit(f"chip_smoke: q11 mesh ({label}) cuda and cpu "
-                         f"streams differ")
-    finally:
-        OPT.SEG_V3, OPT.BUCKETS_V3 = seg
+    for label, cfg in (("default", OPT.DPConfig()),
+                       ("ring_scan", OPT.DPConfig(ring_scan=True))):
+        on_card = PS._compress_sharded(prefix, 11, 22, 4, dev, [dev] * 4,
+                                       dp=cfg, seg=1 << 17)
+        t0 = time.perf_counter()
+        on_cpu = PS._compress_sharded(prefix, 11, 22, 4, cpu, [cpu] * 4,
+                                      dp=cfg, seg=1 << 17)
+        print(f"    {label}, 256 KiB prefix, 4 shards, 128 KiB "
+              f"segments: cuda {len(on_card)} B, cpu {len(on_cpu)} B "
+              f"(cpu path {time.perf_counter() - t0:.1f} s)", flush=True)
+        if on_card != on_cpu or bt.decompress(on_card) != prefix:
+            sys.exit(f"chip_smoke: q11 mesh ({label}) cuda and cpu "
+                     f"streams differ")
 
     # -- the collective gather: one card, so phase 6's bytes
     coll = PS.compress_sharded(corpus, quality=5, gather="collective")
@@ -1454,7 +1488,7 @@ def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
     serialized dictionary with custom words, and backend="numpy"; each
     with its exact launches, its wall and its stream decoded. `mib`
     scales every size (a smaller one rehearses the phase on the CPU);
-    the corpus holds at least 11 of them."""
+    the corpus holds at least 8 of them."""
     import brotli_tpu_torch as bt
     from brotli_tpu_torch.enc.encoder import StreamingEncoder
     from brotli_tpu_torch.format import shared_dictionary as shd
@@ -1574,7 +1608,7 @@ def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
           f"launches {launches}", flush=True)
 
     # backend="numpy": the host matchers and the host DP, no kernel
-    host = corpus[7 * mib:11 * mib]
+    host = corpus[7 * mib:8 * mib]
     for label, fn, data in (
             ("encoder='python' q11 (the host DP)",
              lambda: bt.compress(host[:mib // 4], quality=11,
@@ -1584,8 +1618,8 @@ def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
              lambda: bt.compress(host[:mib], quality=5, encoder="python",
                                  backend="numpy"), host[:mib]),
             ("compress_sharded(q5, use_device=False)",
-             lambda: compress_sharded(host[:4 * mib], quality=5,
-                                      use_device=False), host[:4 * mib])):
+             lambda: compress_sharded(host[:mib], quality=5,
+                                      use_device=False), host[:mib])):
         out, wall, _ = launched(label, fn, {})
         if bt.decompress(out) != data:
             sys.exit(f"chip_smoke: {label} does not decode")
@@ -1593,6 +1627,124 @@ def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
               f"B in {wall:.3f} s [{card}]; no launch", flush=True)
     print(f"    phase 15 wall: {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]", flush=True)
+
+
+def last_slice(corpus, card, dev=torch.device("cuda"), trials=STRESS_TRIALS):
+    """Phase 16: the stress fuzzer over every route on `dev`, the
+    dissector and parse replay on 1 MiB, and the entry module with its
+    dry run held against the CPU (run in a process of its own, started
+    first and stopped on any exit). Returns nothing; exits on any
+    failure."""
+    t_phase = time.perf_counter()
+    # the dry run's CPU side, in its own process while the card works
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_run = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CPU, tmp],
+            cwd=pathlib.Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            _last_slice(corpus, card, dev, trials, cpu_run, tmp)
+        finally:
+            if cpu_run.poll() is None:
+                cpu_run.kill()
+            cpu_run.wait()
+    print(f"    phase 16 wall: {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def _last_slice(corpus, card, dev, trials, cpu_run, tmp):
+    from brotli_tpu_torch import entry, native
+    from brotli_tpu_torch.ops import kernels
+    from brotli_tpu_torch.tools import dissect, replay, stress
+
+    print(f"[16] the last slice: tools/stress, {trials} trials from seed "
+          f"{STRESS_SEED}; the dry run's CPU side started in pid "
+          f"{cpu_run.pid}", flush=True)
+    kernels.reset_launches()
+    failures, wall = timed(lambda: stress.run(
+        stress.trials(STRESS_SEED, trials), dev))
+    launches = dict(kernels.LAUNCHES)
+    print(f"    stress: {trials} trials in {wall:.3f} s [{card}]; "
+          f"{len(failures)} failures; launches {launches}", flush=True)
+    if failures:
+        sys.exit(f"chip_smoke: the stress failed {len(failures)} trials")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        sys.exit(f"chip_smoke: the stress launched no {missing}")
+
+    # the dissector and parse replay over 1 MiB of the corpus's text
+    part = corpus[1 << 20:2 << 20]
+    for q in (5, 11):
+        blob, wall_enc = timed(lambda: native.encode(part, q, 22))
+        text = io.StringIO()
+        back, wall_dis = timed(lambda: dissect.dissect(blob, out=text))
+        if back != part:
+            sys.exit(f"chip_smoke: dissect of the q{q} stream decoded other "
+                     f"bytes")
+        print(f"    dissect, native q{q} stream ({wall_enc:.3f} s to encode, "
+              f"{wall_dis:.3f} s to dissect):", flush=True)
+        for line in text.getvalue().splitlines():
+            print(f"      {line}")
+        rb, wall_rep = timed(lambda: replay.replay(part, blob, q, 22))
+        if native.decode(rb) != part:
+            sys.exit(f"chip_smoke: the q{q} replay does not decode")
+        print(f"    replay q{q}: stream {len(blob)} B, replay (its parse, "
+              f"the native serializer) {len(rb)} B in {wall_rep:.3f} s",
+              flush=True)
+
+    # the entry: match_block on the JAX entry's block, card and CPU
+    fn, args = entry.entry(dev)
+    kernels.reset_launches()
+    (count, packed, err), _ = timed(lambda: fn(*args))
+    k2 = kernels.LAUNCHES["chain_select"]
+    cfn, cargs = entry.entry("cpu")
+    ccount, cpacked, cerr = cfn(*cargs)
+    same = (int(count) == int(ccount) and int(err) == int(cerr) == 0
+            and torch.equal(packed.cpu(), cpacked))
+    print(f"    entry: {int(count)} matches, packed {tuple(packed.shape)}; "
+          f"K2 launches {k2}; cuda {'=' if same else '!='} cpu", flush=True)
+    if not same or k2 != 1:
+        sys.exit("chip_smoke: the entry differs from the CPU, or K2 did "
+                 "not launch once")
+
+    # the dry run over [cuda:0] * 8, then on the CPU
+    n = 8
+    n11 = n * entry.BLOCK + (1 << 14)
+    bounds = np.linspace(0, n11, n + 1).astype(np.int64)
+    nseg = sum(-(-(int(bounds[i + 1] - bounds[i]) +
+                   min(int(bounds[i]), entry.BLOCK)) // entry.BLOCK)
+               for i in range(n))
+    # K2: a block a device, a q5 shard, a q11 seed after the first shard
+    # (each buffer one matcher segment)
+    want = {"chain_select": 3 * n - 1, "suffix_min": nseg,
+            "dp_scan": nseg, "dp_backtrack": nseg}
+    print(f"[16] entry.dryrun_multichip({n}) over [cuda:0] * {n}",
+          flush=True)
+    kernels.reset_launches()
+    on_card, wall = timed(lambda: entry.dryrun_multichip(n, dev))
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    log, _ = cpu_run.communicate(timeout=600)
+    print(f"    the CPU side (pid {cpu_run.pid}, exit {cpu_run.returncode}"
+          f", waited {time.perf_counter() - t0:.1f} s more):", flush=True)
+    for line in log.splitlines():
+        print(f"      {line}")
+    if cpu_run.returncode != 0:
+        sys.exit("chip_smoke: the dry run failed on the CPU")
+    d = pathlib.Path(tmp)
+    matches, hist_total = json.loads((d / "numbers.json").read_text())
+    on_cpu = {"matches": matches, "hist_total": hist_total,
+              "q5": (d / "q5").read_bytes(), "q11": (d / "q11").read_bytes()}
+    print(f"    card {wall:.3f} s [{card}], launches {got}; matches "
+          f"{on_card['matches']} / {on_cpu['matches']}, hist total "
+          f"{on_card['hist_total']} / {on_cpu['hist_total']}, q5 "
+          f"{len(on_card['q5'])} / {len(on_cpu['q5'])} B, q11 "
+          f"{len(on_card['q11'])} / {len(on_cpu['q11'])} B (card / cpu)",
+          flush=True)
+    if on_card != on_cpu:
+        sys.exit("chip_smoke: the dry run on the card differs from the CPU")
+    if got != want:
+        sys.exit(f"chip_smoke: the dry run launched {got}, not {want}")
 
 
 def main():
@@ -1920,7 +2072,10 @@ def main():
     # -- 15. the host pipeline's routes ----------------------------------
     host_pipeline_routes(corpus, card, dev)
 
-    # -- 16. report ------------------------------------------------------
+    # -- 16. the last slice ----------------------------------------------
+    last_slice(corpus, card, dev)
+
+    # -- 17. report ------------------------------------------------------
     path_launches = dict(launches, chain_select=launches_q5["chain_select"],
                          bitpack=launches_ds["bitpack"],
                          lz_resolve=launches_dec["lz_resolve"],
