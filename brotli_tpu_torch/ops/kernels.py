@@ -29,13 +29,17 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 SOURCES = ("suffix_min", "dp_scan", "dp_backtrack", "chain_select",
-           "bitpack", "lz_resolve", "dp_scan_v1", "dp_scan_ring")
+           "bitpack", "lz_resolve", "dp_scan_v1", "dp_scan_ring",
+           "edge_keys", "edge_ranks", "edge_slots")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 W = 64
 B = 4096
-MAX_SLOTS = 64      # suffix_min.cu's and dp_scan_v1.cu's most edge slots
+MAX_SLOTS = 64      # suffix_min.cu's, dp_scan_v1.cu's and edge_slots.cu's
+                    # most edge slots
+MAX_RANKS = 16      # edge_ranks.cu's most ranks a level
+EDGE_TILE = 4096    # edge_slots.cu's positions per CTA
 CHAIN_L = 4096      # chain_select.cu's chunk: n is a multiple of it
 CHAIN_S = 256       # its sub-chunk: the longest walk of one thread
 PACK_TILE = 4096    # bitpack.cu's fields per CTA
@@ -44,7 +48,8 @@ PACK_TABLE = 2 * (256 + 704 + 64)  # its code table: code and length of
 
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
             "chain_select": 0, "bitpack": 0, "lz_resolve": 0,
-            "dp_scan_v1": 0, "dp_scan_ring": 0}
+            "dp_scan_v1": 0, "dp_scan_ring": 0, "edge_keys": 0,
+            "edge_ranks": 0, "edge_slots": 0}
 SLOW = {"dp_scan_v1": None, "dp_scan_ring": None}
 
 _libs = {}
@@ -67,6 +72,15 @@ _SIGNATURES = {
     "btt_lz_resolve": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                        _P, _P],
+    "btt_edge_keys": [_P, _P, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, _P],
+    "btt_edge_ranks": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, _P],
+    "btt_edge_slots": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
+                       ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, _P],
 }
 
 
@@ -360,6 +374,97 @@ def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int,
             cnt.data_ptr())
     _count("lz_resolve")
     return (out, cnt[:1], cnt[1:]) if stats else (out, cnt[:1])
+
+
+def edge_keys(data, npos, plen):
+    """K9 on the card: the segment's uint8 bytes (n,) -> the int64 (n,)
+    sort keys of the level of `plen` prefix bytes (4, 8 or 16) below the
+    level's `npos`."""
+    _check(data, "data", 1, torch.uint8)
+    n = data.shape[0]
+    if not 16 <= n < 1 << 31 or plen not in (4, 8, 16):
+        raise ValueError("edge_keys: bad shapes or arguments")
+    key = torch.empty(n, dtype=torch.int64, device=data.device)
+    _launch("edge_keys", "btt_edge_keys", data.device, data.data_ptr(),
+            key.data_ptr(), n, plen, int(npos))
+    _count("edge_keys")
+    return key
+
+
+def edge_ranks(key_s, order, data, npos, max_distance, ranks, out, col):
+    """K10 on the card: a level's stably sorted int64 keys and their
+    int64 order (n,), the uint8 bytes (n,) -> the level's candidates
+    (len << 25 | dist) written as int32 into columns [col, col +
+    len(ranks)) of `out` (n, ncand), which is returned."""
+    _check(key_s, "key_s", 1, torch.int64)
+    _check(order, "order", 1, torch.int64)
+    _check(data, "data", 1, torch.uint8)
+    _check(out, "out", 2)
+    n = key_s.shape[0]
+    nranks = len(ranks)
+    if order.shape[0] != n or data.shape[0] != n or out.shape[0] != n or \
+            not 32 <= n < 1 << 31 or not 1 <= nranks <= MAX_RANKS or \
+            min(ranks) < 1 or col < 0 or col + nranks > out.shape[1]:
+        raise ValueError("edge_ranks: bad shapes or arguments")
+    rk = (ctypes.c_int * nranks)(*ranks)
+    _launch("edge_ranks", "btt_edge_ranks", key_s.device, key_s.data_ptr(),
+            order.data_ptr(), data.data_ptr(), out.data_ptr(), n,
+            out.shape[1], col, rk, nranks, int(npos), int(max_distance))
+    _count("edge_ranks")
+    return out
+
+
+def edge_slots(cand, data, max_distance, dist_sym_bits_q, seed_pos,
+               seed_len, seed_dist, lit_tab, ctx_tab=None, dict_pos=None,
+               dict_pay=None, seg_base=0):
+    """K11 on the card: K10's int32 candidates (n, ncand), the uint8
+    bytes (n,), the int64 seed matches and (v3, `ctx_tab` given) the
+    int64 dictionary hits, the 64 int32 distance-symbol costs and the
+    literal tables (v3: (64*256,) bits and (256*256,) contexts; v1: the
+    (256*256,) [p1, byte] costs) -> int32 pd_flat and cs_flat (nslots,
+    n), litq and dist_fill (n,). One C call: two memsets of its scratch
+    (one allocation), the scatter kernel and the slot kernel."""
+    v3 = ctx_tab is not None
+    _check(cand, "cand", 2)
+    _check(data, "data", 1, torch.uint8)
+    _check(dist_sym_bits_q, "dist_sym_bits_q", 1)
+    _check(lit_tab, "lit_tab", 1)
+    seeds = (seed_pos, seed_len, seed_dist)
+    for t, name in zip(seeds, ("seed_pos", "seed_len", "seed_dist")):
+        _check(t, name, 1, torch.int64)
+    if v3:
+        _check(ctx_tab, "ctx_tab", 1)
+        _check(dict_pos, "dict_pos", 1, torch.int64)
+        _check(dict_pay, "dict_pay", 1, torch.int64)
+    n, ncand = cand.shape
+    nslots = ncand + (2 if v3 else 1)
+    ns = seed_pos.shape[0]
+    nd = dict_pos.shape[0] if v3 else 0
+    if data.shape[0] != n or not 0 < n < 1 << 31 or \
+            not 1 <= ncand <= MAX_SLOTS - 2 or nslots > MAX_SLOTS or \
+            dist_sym_bits_q.shape[0] < 64 or \
+            seed_len.shape[0] != ns or seed_dist.shape[0] != ns or \
+            lit_tab.shape[0] != (64 * 256 if v3 else 256 * 256) or \
+            (v3 and (ctx_tab.shape[0] != 256 * 256 or
+                     dict_pay.shape[0] != nd)):
+        raise ValueError("edge_slots: bad shapes")
+    dev = cand.device
+    pd_flat, cs_flat = torch.empty((2, nslots, n), dtype=torch.int32,
+                                   device=dev)
+    litq, dist_fill = torch.empty((2, n), dtype=torch.int32, device=dev)
+    ntiles = -(-n // EDGE_TILE)
+    scratch = torch.empty(3 * n + ntiles, dtype=torch.int64, device=dev)
+    _launch("edge_slots", "btt_edge_slots", dev, cand.data_ptr(),
+            data.data_ptr(), seed_pos.data_ptr(), seed_len.data_ptr(),
+            seed_dist.data_ptr(), ns,
+            dict_pos.data_ptr() if v3 else None,
+            dict_pay.data_ptr() if v3 else None, nd,
+            dist_sym_bits_q.data_ptr(), lit_tab.data_ptr(),
+            ctx_tab.data_ptr() if v3 else None, pd_flat.data_ptr(),
+            cs_flat.data_ptr(), litq.data_ptr(), dist_fill.data_ptr(),
+            scratch.data_ptr(), n, ncand, int(max_distance), int(seg_base))
+    _count("edge_slots")
+    return pd_flat, cs_flat, litq, dist_fill
 
 
 def reset_launches() -> None:

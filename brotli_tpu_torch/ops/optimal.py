@@ -6,11 +6,14 @@ Two pipelines, chosen by `DPConfig.mode`:
 v3 (the default), per segment of the input (4 MiB by default, padded to
 a 2 or 4 MiB bucket):
 
-  1. candidate edges by tiered sort-carry (`_edges_slots`): the k
+  1. candidate edges by tiered sort-carry (`segment_tables`): the k
      nearest prior occurrences sharing a 4- or 8-byte prefix (and a
-     16-byte one with `level3`), their capped match lengths, plus
-     continuation edges inside the seed parse's long matches and an
-     atomic static-dictionary slot;
+     16-byte one with `level3`) and their capped match lengths, per
+     level a sort key (K9, csrc/edge_keys.cu), a stable torch.sort and
+     the ranks (K10, csrc/edge_ranks.cu); then the slot tables (K11,
+     csrc/edge_slots.cu): those candidates, continuation edges inside
+     the seed parse's long matches and an atomic static-dictionary
+     slot, and the literal costs;
   2. the suffix-min pre-reduction (K1, csrc/suffix_min.cu): the 29 (39
      with `level3`) edge slots collapse into a dense per-position
      (cost, payload) row over the W window columns;
@@ -21,10 +24,10 @@ a 2 or 4 MiB bucket):
   4. the backtrack (K4, csrc/dp_backtrack.cu) and a stable sort that
      compacts the chosen match starts.
 
-v1, per 2 MiB segment: the same edges without the dictionary slot, a
-literal cost from a (p1, byte) table, and the all-slots wavefront (K7,
-csrc/dp_scan_v1.cu), whose every step reduces all the slots itself;
-then K4 and the compaction.
+v1, per 2 MiB segment: the same edges (K9-K11) without the dictionary
+slot, a literal cost from a (p1, byte) table, and the all-slots
+wavefront (K7, csrc/dp_scan_v1.cu), whose every step reduces all the
+slots itself; then K4 and the compaction.
 
 Every kernel has a plain PyTorch version here with the same contract;
 its wrapper runs the plain version for a tensor on the CPU and the
@@ -180,27 +183,65 @@ def _dist_cost_q(dist, dist_sym_bits_q):
     return dist_sym_bits_q[sym].to(torch.int64) + nbits * QB
 
 
-def _level_candidates(w, pos, npos, max_distance, ranks, hval):
-    """One prefix level's rank-r candidates via sort-carry: a stable
-    sort on the packed key hash<<14 | pos>>9 (the key is not unique, so
-    only a stable sort gives the JAX package's rank-k neighbours).
-    Returns len(ranks) packed (len<<25 | dist) arrays in position
-    order."""
-    n = pos.shape[0]
-    key = torch.where(pos < npos, (hval << 14) | (pos >> 9),
-                      (1 << 31) | pos)
-    key_s, order = torch.sort(key, stable=True)
+def _words(data, nwords=CAPD // 4):
+    """The first `nwords` 32-bit words of the 32 bytes at every position,
+    little-endian, the segment's bytes read cyclically (torch.roll wraps
+    at the segment end like jnp.roll; the npos + 3 guard of the ranks
+    relies on that wrap). int64 lanes holding uint32 values."""
+    d = data.to(torch.int64)
+    w0 = (d | (torch.roll(d, -1) << 8) | (torch.roll(d, -2) << 16) |
+          (torch.roll(d, -3) << 24))
+    return [w0] + [torch.roll(w0, -4 * r) for r in range(1, nwords)]
+
+
+def edge_keys_plain(data, npos, plen):
+    """K9, plain version of the key lines of optimal_jax._level_candidates
+    with the hashes of _edges_slots: the int64 (n,) sort key of every
+    position for the level of `plen` prefix bytes (4, 8 or 16), hval <<
+    14 | pos >> 9 below the level's `npos` (the segment's npos - (plen -
+    4), at least 0, which the caller passes) and 1 << 31 | pos from
+    there; hval is the level's 17-bit hash of the first plen cyclic
+    bytes."""
+    w = _words(data, plen // 4)
+    if plen == 4:
+        hval = u32.shr(u32.mul(w[0], HASH_MUL), 15)
+    elif plen == 8:
+        hval = u32.shr(u32.mul(w[0], HASH_MUL) ^ u32.mul(w[1], HASH_MUL2),
+                       15)
+    else:
+        hval = u32.shr(u32.mul(w[0], HASH_MUL) ^ u32.mul(w[1], HASH_MUL2) ^
+                       u32.mul(w[2], HASH_MUL3) ^ u32.mul(w[3], HASH_MUL4),
+                       15)
+    pos = torch.arange(data.shape[0], dtype=torch.int64, device=data.device)
+    return torch.where(pos < npos, (hval << 14) | (pos >> 9),
+                       (1 << 31) | pos)
+
+
+def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks):
+    """K10, plain version of the rank loop of optimal_jax._level_candidates
+    and its sort back to position order. key_s, order: the stable sort
+    of K9's keys (int64; only a stable sort gives the JAX package's
+    rank-k neighbours, the key not being unique). For sorted row i and
+    rank k, the candidate is row i - k when both share the hash (key >>
+    14; padding rows keep the high bit, and rows before the head take
+    _shift_up's fills, so neither ever matches), the row is live, and
+    0 < dist <= max_distance; its length is the common prefix of the 32
+    cyclic bytes at both positions, capped at the level's npos + 3 - pos
+    and dropped below 2. Returns int32 (n, len(ranks)) len << 25 | dist
+    (0 where none), in position order."""
+    n = key_s.shape[0]
     pos_s = order
-    w_s = [x[order] for x in w]
-    h_s = u32.shr(key_s, 14)  # padding rows keep the high bit: no match
+    w_s = [x[order] for x in _words(data)]
+    h_s = u32.shr(key_s, 14)
     live = key_s < (1 << 31)
     guard = torch.clamp(npos + 3 - pos_s, min=0)
-    cand = []
-    for k in ranks:
+    out = torch.empty((n, len(ranks)), dtype=torch.int32, device=key_s.device)
+    packed_s = torch.empty_like(out)
+    for j, k in enumerate(ranks):
         same = (h_s == _shift_up(h_s, k, u32.MASK32)) & live
         dist = pos_s - _shift_up(pos_s, k, -1)
         valid = same & (dist > 0) & (dist <= max_distance)
-        mlen = torch.zeros(n, dtype=torch.int64, device=pos.device)
+        mlen = torch.zeros(n, dtype=torch.int64, device=key_s.device)
         alive = valid
         for ws in w_s:
             x = ws ^ _shift_up(ws, k, 0)
@@ -208,48 +249,61 @@ def _level_candidates(w, pos, npos, max_distance, ranks, hval):
             alive = alive & (x == 0)
         mlen = torch.minimum(mlen, guard)
         mlen = torch.where(valid & (mlen >= 2), mlen, 0)
-        packed_s = (mlen << 25) | torch.where(mlen > 0, dist, 0)
-        packed = torch.empty_like(packed_s)
-        packed[order] = packed_s  # back to position order
-        cand.append(packed)
+        packed_s[:, j] = ((mlen << 25) | torch.where(mlen > 0, dist, 0)).to(
+            torch.int32)
+    out[order] = packed_s  # back to position order
+    return out
+
+
+def edge_keys(data, npos, plen):
+    """K9: the plain version on the CPU, csrc/edge_keys.cu on the card."""
+    if data.device.type == "cpu":
+        return edge_keys_plain(data, npos, plen)
+    return kernels.edge_keys(data, npos, plen)
+
+
+def edge_ranks(key_s, order, data, npos, max_distance, ranks, out, col):
+    """K10 into columns [col, col + len(ranks)) of the int32 (n, ncand)
+    candidate table `out` (filled in place, one level at a time): the
+    plain version on the CPU, csrc/edge_ranks.cu on the card."""
+    if key_s.device.type == "cpu":
+        out[:, col:col + len(ranks)] = edge_ranks_plain(
+            key_s, order, data, npos, max_distance, ranks)
+        return out
+    return kernels.edge_ranks(key_s, order, data, npos, max_distance, ranks,
+                              out, col)
+
+
+def _candidates(data, npos, max_distance, levels=LEVELS):
+    """Every level's rank candidates: K9, the stable sort, K10 per level,
+    into one int32 (n, ncand) table (13 + 14 columns; 37 with the
+    16-byte level), each level on its own npos - (plen - 4)."""
+    ncand = sum(len(ranks) for _, ranks in levels)
+    cand = torch.empty((data.shape[0], ncand), dtype=torch.int32,
+                       device=data.device)
+    col = 0
+    for plen, ranks in levels:
+        lvl_npos = max(npos - (plen - 4), 0)
+        key_s, order = torch.sort(edge_keys(data, lvl_npos, plen),
+                                  stable=True)
+        edge_ranks(key_s, order, data, lvl_npos, max_distance, ranks, cand,
+                   col)
+        col += len(ranks)
     return cand
 
 
-def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
-                 seed_pos, seed_len, seed_dist, levels=LEVELS):
-    """Per-slot edges shared by the v1 and v3 pipelines: tiered
-    sort-carry candidate `levels` + seed continuation edges, flat
-    (nslots, n) layout, block-boundary clipped. Returns int32 (ls_flat,
-    cs_flat, ds_flat, dist_fill), dist_fill the distance of the last
-    seed match starting at or before each position (the ring scan's
-    entry ring)."""
-    n = data.shape[0]
-    dev = data.device
-    d = data.to(torch.int64)
-    # torch.roll wraps at the segment end like jnp.roll; the npos + 3
-    # guard in _level_candidates relies on that wrap
-    w0 = (d | (torch.roll(d, -1) << 8) | (torch.roll(d, -2) << 16) |
-          (torch.roll(d, -3) << 24))
-    w = [w0] + [torch.roll(w0, -4 * r) for r in range(1, CAPD // 4)]
+def _slot_rows(cand, dist_sym_bits_q, seed_pos, seed_len, seed_dist):
+    """The slot rows of optimal_jax._edges_slots from the (n, ncand)
+    candidates: int32 (nslots, n) (ls_flat, cs_flat, ds_flat), the
+    candidates then the continuation slot, block-boundary clipped, and
+    the int64 (n,) dist_fill."""
+    n = cand.shape[0]
+    dev = cand.device
     pos = torch.arange(n, dtype=torch.int64, device=dev)
-    cand = []
-    for plen, ranks in levels:
-        if plen == 4:
-            hval = u32.shr(u32.mul(w[0], HASH_MUL), 15)
-        elif plen == 8:
-            hval = u32.shr(u32.mul(w[0], HASH_MUL) ^
-                           u32.mul(w[1], HASH_MUL2), 15)
-        else:
-            hval = u32.shr(u32.mul(w[0], HASH_MUL) ^
-                           u32.mul(w[1], HASH_MUL2) ^
-                           u32.mul(w[2], HASH_MUL3) ^
-                           u32.mul(w[3], HASH_MUL4), 15)
-        cand.extend(_level_candidates(
-            w, pos, max(npos - (plen - 4), 0), max_distance, ranks, hval))
-
     # continuation edges from seed matches: scatter (end, dist) at each
-    # match start, then fill forward with the latest non-zero value
-    # (seed matches come from a parse, so they never overlap)
+    # match start (amax per field), then fill forward with the latest
+    # positive value (seed matches come from a parse, so they never
+    # overlap)
     sp = torch.clamp(seed_pos, 0, n - 1)
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
     ends = zero.scatter_reduce(0, sp, torch.where(
@@ -262,7 +316,8 @@ def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
     cont_dist = torch.where(cont_len >= 2, dist_fill, 0)
 
     slots_len, slots_cost, slots_dist = [], [], []
-    for cp in cand:
+    for k in range(cand.shape[1]):
+        cp = cand[:, k].to(torch.int64)
         le = torch.clamp(cp >> 25, max=W - 1)
         di = cp & MASK25
         cost = _dist_cost_q(di, dist_sym_bits_q)
@@ -283,6 +338,20 @@ def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
     room = (B - pos % B).to(torch.int32)[None, :]
     ls_flat = torch.minimum(ls_flat, room)
     cs_flat = torch.where(ls_flat >= 2, cs_flat, EDGE_INF)
+    return ls_flat, cs_flat, ds_flat, dist_fill
+
+
+def _edges_slots(data, npos, max_distance, dist_sym_bits_q,
+                 seed_pos, seed_len, seed_dist, levels=LEVELS):
+    """Per-slot edges shared by the v1 and v3 pipelines (the counterpart
+    of optimal_jax._edges_slots): tiered sort-carry candidate `levels`
+    + seed continuation edges, flat (nslots, n) layout, block-boundary
+    clipped. Returns int32 (ls_flat, cs_flat, ds_flat, dist_fill),
+    dist_fill the distance of the last seed match starting at or before
+    each position (the ring scan's entry ring)."""
+    ls_flat, cs_flat, ds_flat, dist_fill = _slot_rows(
+        _candidates(data, npos, max_distance, levels), dist_sym_bits_q,
+        seed_pos, seed_len, seed_dist)
     return ls_flat, cs_flat, ds_flat, dist_fill.to(torch.int32)
 
 
@@ -294,25 +363,40 @@ def _fill_last_positive(x):
     return x[src]
 
 
-def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
-                   dist_sym_bits_q, seed_pos, seed_len, seed_dist,
-                   dict_pos, dict_pay, seg_base, levels=LEVELS):
-    """Stage 1 of a v3 segment: the 29 edge slots (27 candidate ranks,
-    the atomic dictionary slot, the continuation slot; 39 with the
-    16-byte level) as int32 (nslots, n) `pd_flat` (len<<25 | dist) and
-    `cs_flat` (distance cost), the int32 (n,) per-position literal cost
-    and the int32 (n,) `dist_fill` of `_edges_slots`."""
-    n = data.shape[0]
-    dev = data.device
-    ls_flat, cs_flat, ds_flat, dist_fill = _edges_slots(
-        data, npos, max_distance, dist_sym_bits_q, seed_pos, seed_len,
-        seed_dist, levels)
+def edge_slots_plain(cand, data, max_distance, dist_sym_bits_q, seed_pos,
+                     seed_len, seed_dist, lit_tab, ctx_tab=None,
+                     dict_pos=None, dict_pay=None, seg_base=0):
+    """K11, plain version of the slot rows of optimal_jax._edges_slots,
+    the dictionary and literal rows of _dp_v3_impl and, for v1, of
+    _edges_kernel. cand: K10's int32 (n, ncand) table.
+
+    v3 (ctx_tab given): the nslots = ncand + 2 slots [candidates, the
+    atomic dictionary slot, the continuation slot], the dictionary slot
+    inserted after the block clip (its length kept only where the word
+    fits the block, its distance past the window at seg_base + pos, its
+    dls << 25 wrapping in int32), and the literal cost lit_tab[ctx_tab[p1
+    << 8 | p2] << 8 | byte] * 2 (p1, p2 the previous bytes, 0 before the
+    segment). v1 (ctx_tab None): ncand + 1 slots without the dictionary
+    slot, and the literal cost lit_tab[p1 << 8 | byte], no * 2.
+
+    Returns int32 (nslots, n) pd_flat (len << 25 | dist, dist 0 below
+    length 2) and cs_flat (distance cost, EDGE_INF where no edge), in
+    the layout K1 and K7 read, and the int32 (n,) litq and dist_fill."""
+    n = cand.shape[0]
+    ls_flat, cs_flat, ds_flat, dist_fill = _slot_rows(
+        cand, dist_sym_bits_q, seed_pos, seed_len, seed_dist)
     pd_flat = (ls_flat << 25) | torch.where(ls_flat >= 2, ds_flat, 0)
+    d = data.to(torch.int64)
+    p1 = _shift_up(d, 1, 0)
+    if ctx_tab is None:
+        litq = lit_tab[(p1 << 8) | d].to(torch.int32)
+        return (pd_flat.contiguous(), cs_flat.contiguous(), litq,
+                dist_fill.to(torch.int32))
     # dict slot row (inserted before the continuation slot)
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = torch.arange(n, dtype=torch.int64, device=cand.device)
     val = dict_pay.to(torch.int64)
     dpp = torch.clamp(dict_pos.to(torch.int64), 0, n - 1)
-    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    zero = torch.zeros(n, dtype=torch.int64, device=cand.device)
     dls = zero.scatter_reduce(0, dpp, torch.where(
         val > 0, (val >> 22) & 0x3FF, 0), "amax", include_self=True)
     doff = zero.scatter_reduce(0, dpp, torch.where(
@@ -329,12 +413,39 @@ def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
                          cs_flat[-1:]]).contiguous()
     # per-position literal cost: ctx = lut0[p1]|lut1[p2], then
     # bits[ctx, byte] (u8 at 1/8 bit -> 1/16 units)
-    d = data.to(torch.int64)
-    p1 = _shift_up(d, 1, 0)
     p2 = _shift_up(d, 2, 0)
     cid = ctx_tab[(p1 << 8) | p2].to(torch.int64)
-    litq = (bits_tab[(cid << 8) | d] * 2).to(torch.int32)
-    return pd_flat, cs_flat, litq, dist_fill
+    litq = (lit_tab[(cid << 8) | d] * 2).to(torch.int32)
+    return pd_flat, cs_flat, litq, dist_fill.to(torch.int32)
+
+
+def edge_slots(cand, data, max_distance, dist_sym_bits_q, seed_pos,
+               seed_len, seed_dist, lit_tab, ctx_tab=None, dict_pos=None,
+               dict_pay=None, seg_base=0):
+    """K11: the plain version on the CPU, csrc/edge_slots.cu on the
+    card."""
+    if cand.device.type == "cpu":
+        return edge_slots_plain(cand, data, max_distance, dist_sym_bits_q,
+                                seed_pos, seed_len, seed_dist, lit_tab,
+                                ctx_tab, dict_pos, dict_pay, seg_base)
+    return kernels.edge_slots(cand, data, max_distance, dist_sym_bits_q,
+                              seed_pos, seed_len, seed_dist, lit_tab,
+                              ctx_tab, dict_pos, dict_pay, seg_base)
+
+
+def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
+                   dist_sym_bits_q, seed_pos, seed_len, seed_dist,
+                   dict_pos, dict_pay, seg_base, levels=LEVELS):
+    """Stage 1 of a v3 segment: the candidates (K9, the sorts, K10) and
+    the slot tables (K11): the 29 edge slots (27 candidate ranks, the
+    atomic dictionary slot, the continuation slot; 39 with the 16-byte
+    level) as int32 (nslots, n) `pd_flat` (len<<25 | dist) and
+    `cs_flat` (distance cost), the int32 (n,) per-position literal cost
+    and the int32 (n,) `dist_fill` of `_edges_slots`."""
+    return edge_slots(_candidates(data, npos, max_distance, levels), data,
+                      max_distance, dist_sym_bits_q, seed_pos, seed_len,
+                      seed_dist, bits_tab, ctx_tab, dict_pos, dict_pay,
+                      seg_base)
 
 
 def edges_v1(data, npos, max_distance, litbits_q, dist_sym_bits_q,
@@ -345,14 +456,10 @@ def edges_v1(data, npos, max_distance, litbits_q, dist_sym_bits_q,
     and `cs_flat`, and the int32 (n,) literal cost litbits_q[p1, byte]
     from the (256*256,) table, p1 the previous byte (0 at position 0).
     JAX emits the same values transposed to (B, nslots, nb)."""
-    ls_flat, cs_flat, ds_flat, _ = _edges_slots(
-        data, npos, max_distance, dist_sym_bits_q, seed_pos, seed_len,
-        seed_dist, levels)
-    pd_flat = (ls_flat << 25) | torch.where(ls_flat >= 2, ds_flat, 0)
-    d = data.to(torch.int64)
-    p1 = _shift_up(d, 1, 0)
-    litq = litbits_q[(p1 << 8) | d].to(torch.int32)
-    return pd_flat.contiguous(), cs_flat.contiguous(), litq
+    pd_flat, cs_flat, litq, _ = edge_slots(
+        _candidates(data, npos, max_distance, levels), data, max_distance,
+        dist_sym_bits_q, seed_pos, seed_len, seed_dist, litbits_q)
+    return pd_flat, cs_flat, litq
 
 
 # ---------------------------------------------------------------------

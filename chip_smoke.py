@@ -5,8 +5,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
   2. build the port's native library and its CUDA kernels from the
      sources in this checkout;
   3. hold each kernel bit for bit against its plain PyTorch version on
-     the card and time both (median of CUDA-event timed runs): K1, K3
-     and K4 on the real inputs of the corpus's first 4 MiB DP segment,
+     the card and time both (median of CUDA-event timed runs): K9, K10
+     and K11 (the candidate edges and slot tables) on the first 4 MiB DP
+     segment's real inputs (every level, the 16-byte one too) and on
+     seeded cases (a tail-padded segment, npos 0 and n, all-zero bytes,
+     the small window, duplicate seed starts and dictionary hits, random
+     candidate words, the v1 layout), then the card's operations of one
+     dp_v3_segment call with the plain edges and with K9-K11 (at most
+     100); K1, K3 and K4 on the real inputs of that segment,
      K1 and K4 also on seeded inputs at the same shapes (K4 also with
      a part-full last CTA and with rows off the 16-byte grid), K2 on the
      real skip vector of the q5 matcher's second 8 MiB segment (once,
@@ -17,7 +23,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
   4. the q11 path: compress the 16 MiB corpus at q11 on the card three
      times: a first run, a timed run (stage trace off; kernel launches
      and peak device memory counted; decoded back exactly) and a traced
-     run for the stage breakdown, all with the same bytes;
+     run for the stage breakdown, all with the same bytes; K9 and K10
+     twice and K11, K1, K3, K4 once a segment; dp.dispatch of the
+     traced run;
   5. the same q11 bytes from the kernels and from the plain versions on
      the CPU, for a 512 KiB prefix;
   6. the q5 path: parallel.shard.compress_sharded(corpus, quality=5),
@@ -110,7 +118,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
      variant, encoder="device", the Compressor at q10/q11 in modes 1-2,
      a serialized dictionary, base64 mode, compress_sharded with each
      serializer -- and every decoder on each stream; zero failures, and
-     K1-K8 each launched at least once, per route as printed); the
+     K1-K11 each launched at least once, per route as printed); the
      dissector and parse replay over the native q5 and q11 streams of
      1 MiB of the corpus (dissect's summary lines; each replay decoded,
      its size beside the stream's); entry.entry() on the card against
@@ -455,6 +463,268 @@ def ring_case(kind, nb, seed, B=4096, W=64):
             npos)
 
 
+def edge_case(kind, n, seed):
+    """Seeded K11 inputs at the main path's width: "seeds" (two seeds at
+    one start, giving the end of one and the distance of the other;
+    overlaps; a zero length with a live distance; starts below 0 and
+    past n; 40,000 random seeds on repeated starts, none in the upper
+    half, whose tiles find the last seed more than 32 tiles back) or
+    "dictionary" (two hits at one position; advances of
+    100 at block starts, whose << 25 wraps; advances of 1; one that
+    overruns its block; payloads with bit 31 set; positions below 0 and
+    past n; 20,000 random hits on repeated positions). Returns int64
+    (pos, len, dist) or (pos, payload) arrays."""
+    rng = np.random.default_rng(seed)
+    if kind == "seeds":
+        k = np.array([[100, 20, 7], [100, 10, 900], [5000, 40, 3],
+                      [5010, 60, 11], [7000, 0, 55], [-5, 30, 2],
+                      [n + 9, 70, 4], [n - 2, 5, 6]], np.int64)
+        starts = rng.choice(np.arange(0, n, 61), 40_000)
+        starts[starts > n // 2] //= 3  # the upper half's tiles stay empty
+        r = np.stack([starts, rng.integers(0, 90, 40_000),
+                      rng.integers(1, 1 << 22, 40_000)], 1)
+        return tuple(np.concatenate([k, r]).T)
+    adv = lambda a, wl, off: (a << 22) | (wl << 17) | off
+    fixed = []
+    for blk in (3, 700, 1023):
+        b0 = blk * 4096
+        fixed += [(b0, adv(9, 9, 70)), (b0, adv(5, 5, 99_000)),
+                  (b0 + 1, adv(100, 24, 5)), (b0 + 7, adv(1, 4, 3)),
+                  (b0 + 4086, adv(30, 20, 12)),
+                  (b0 + 9, (1 << 31) | adv(9, 9, 1))]
+    fixed += [(-4, adv(8, 8, 2)), (n + 100, adv(6, 6, 3)),
+              (4096 * 5, adv(100, 24, 5))]
+    pos = rng.choice(np.arange(0, n, 37), 20_000)
+    pay = adv(rng.integers(0, 64, 20_000), 8,
+              rng.integers(0, 1 << 17, 20_000))
+    pay[::50] |= 1 << 31
+    k = np.array(fixed, np.int64)
+    return (np.concatenate([k[:, 0], pos]).astype(np.int64),
+            np.concatenate([k[:, 1], pay]).astype(np.uint32).view(np.int32)
+            .astype(np.int64))
+
+
+def edge_kernels(arr, seg, maxd, rows, dev, card):
+    """Phase 3's K9, K10 and K11 checks: each kernel bit for bit against
+    its plain version on the card, on the first 4 MiB segment's real
+    inputs (every level, the 16-byte one too) and on seeded cases: a
+    tail-padded segment (3,000,001 live bytes of a 4 MiB bucket), npos
+    0 and n, all-zero bytes, the (1 << 10) - 16 window, duplicate seed
+    starts and dictionary hits, random candidate words, the v1 layout;
+    then each timed alone and beside its plain version, and the card's
+    operations of one dp_v3_segment call with the plain edges and with
+    the kernels (at most 100 with the kernels)."""
+    from brotli_tpu_torch.ops import kernels, optimal as OPT
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    b = OPT._bucket_v3(len(seg))
+    seed = OPT._seed_parse(seg, maxd, 0)
+    tables = OPT._cost_tables(seg, seed, lit_table=True,
+                              cfg=OPT.DPConfig())
+    dict_g = OPT._dict_probe_global(seg, [seed], 0, maxd)
+    bits_tab, ctx_tab, copyq, distq = OPT.device_tables(tables, dev)
+    npos, spos, slen, sdist, dloc, dval = OPT.segment_inputs(
+        arr, [seed], dict_g, 0, len(seg), b, dev)
+    data = OPT.upload_input(arr, len(arr), dev)[:b]
+    n = data.shape[0]
+    levels = OPT.DPConfig(level3=True).levels
+    lit1 = t(np.asarray(OPT._cost_tables(
+        seg, seed, lit_table=False, cfg=OPT.DPConfig(mode="v1"))[0],
+        np.int32).reshape(-1))
+    seeds1 = [t(a.astype(np.int64)) for a in OPT._seg_seed_edges(
+        [seed], 0, len(seg), OPT.SEG // 32)]
+    hi_t = min(3_000_001, n - 12_345)
+    data_t = torch.zeros_like(data)
+    data_t[:hi_t] = data[:hi_t]
+    npos_t, *rest_t = OPT.segment_inputs(arr, [seed], dict_g, 0, hi_t, b,
+                                         dev)
+    zeros = torch.zeros_like(data)
+    errs = {"K9": {}, "K10": {}, "K11": {}}
+
+    def cands(label, d, np_, window, lvls):
+        """K9, the sort and K10 per level on the card, each against its
+        plain version on the same inputs; returns the kernels' table."""
+        cand = torch.empty((n, sum(len(r) for _, r in lvls)),
+                           dtype=torch.int32, device=dev)
+        col = 0
+        for plen, ranks in lvls:
+            lnp = max(np_ - (plen - 4), 0)
+            key = kernels.edge_keys(d, lnp, plen)
+            errs["K9"][f"{label} {plen}"] = max_abs_err(
+                key, OPT.edge_keys_plain(d, lnp, plen))
+            key_s, order = torch.sort(key, stable=True)
+            kernels.edge_ranks(key_s, order, d, lnp, window, ranks, cand, col)
+            errs["K10"][f"{label} {plen}"] = max_abs_err(
+                cand[:, col:col + len(ranks)],
+                OPT.edge_ranks_plain(key_s, order, d, lnp, window, ranks))
+            col += len(ranks)
+        return cand
+
+    def slots(label, *args, **kw):
+        got = kernels.edge_slots(*args, **kw)
+        want = OPT.edge_slots_plain(*args, **kw)
+        errs["K11"][label] = max(max_abs_err(g, w)
+                                 for g, w in zip(got, want))
+        return got
+
+    seeds = (spos, slen, sdist)
+    v3 = dict(ctx_tab=ctx_tab, dict_pos=dloc, dict_pay=dval, seg_base=0)
+    cand39 = cands("real", data, npos, maxd, levels)
+    slots("real 39 slots", cand39, data, maxd, distq, *seeds, bits_tab, **v3)
+    del cand39
+    cand = cands("real", data, npos, maxd, OPT.LEVELS)
+    got = slots("real", cand, data, maxd, distq, *seeds, bits_tab, **v3)
+    if not (got[0][:-2] >> 25).ge(2).sum() > n // 2:
+        sys.exit("chip_smoke: the real segment's candidates are nearly "
+                 "empty")
+    slots("v1", cand, data, maxd, distq, *seeds1, lit1)
+    ss = tuple(t(a) for a in edge_case("seeds", n, 1))
+    dd = tuple(t(a) for a in edge_case("dictionary", n, 2))
+    slots("duplicate seeds", cand, data, maxd, distq, *ss, bits_tab, **v3)
+    slots("duplicate seeds v1", cand, data, maxd, distq, *ss, lit1)
+    slots("duplicate dictionary hits", cand, data, maxd, distq, *seeds,
+          bits_tab, ctx_tab=ctx_tab, dict_pos=dd[0], dict_pay=dd[1],
+          seg_base=3 << 22)
+    rng = np.random.default_rng(9)
+    rand = t(rng.integers(-(1 << 31), 1 << 31, (n, cand.shape[1]),
+                          dtype=np.int64).astype(np.int32))
+    slots("random words", rand, data, maxd, distq, *ss, bits_tab,
+          ctx_tab=ctx_tab, dict_pos=dd[0], dict_pay=dd[1], seg_base=12_345)
+    del rand, got
+    small = (1 << 10) - 16
+    cw = cands("window", data, npos, small, OPT.LEVELS)
+    slots("window", cw, data, small, distq, *seeds, bits_tab, **v3)
+    del cw
+    ct = cands("tail", data_t, npos_t, maxd, levels)
+    slots("tail", ct, data_t, maxd, distq, *rest_t[:3], bits_tab,
+          ctx_tab=ctx_tab, dict_pos=rest_t[3], dict_pay=rest_t[4],
+          seg_base=0)
+    del ct
+    for label, d, np_ in (("npos 0", data, 0), ("npos n", data, n),
+                          ("zeros", zeros, n - 3)):
+        cands(label, d, np_, maxd, OPT.LEVELS)
+    torch.cuda.synchronize()
+    for k in ("K9", "K10", "K11"):
+        print(f"[3] {k}: max_abs_err {errs[k]}", flush=True)
+
+    # timed: the 8-byte level (14 ranks) for K9 and K10, the default 29
+    # slots for K11, each alone and beside its plain version
+    plen, ranks = OPT.LEVELS[1]
+    lnp = npos - (plen - 4)
+    key = kernels.edge_keys(data, lnp, plen)
+    key_s, order = torch.sort(key, stable=True)
+    ncand = cand.shape[1]
+    nslots = ncand + 2
+    k11 = lambda: kernels.edge_slots(cand, data, maxd, distq, *seeds,
+                                     bits_tab, **v3)
+    k11_plain = lambda: OPT.edge_slots_plain(cand, data, maxd, distq,
+                                             *seeds, bits_tab, **v3)
+    rows["K9"] = dict(
+        name="edge_keys", route="cuda",
+        source="brotli_tpu_torch/csrc/edge_keys.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:144",
+        max_abs_err=max(errs["K9"].values()),
+        ms=cuda_ms(lambda: kernels.edge_keys(data, lnp, plen), 10),
+        device_ms=cuda_ms(lambda: kernels.edge_keys(data, lnp, plen), 10,
+                          queued=True),
+        plain_ms=cuda_ms(lambda: OPT.edge_keys_plain(data, lnp, plen), 3),
+        nbytes=n + 8 * n,
+        # two words, two multiplies, the key: about 20 operations
+        nops=n * 20)
+    rows["K10"] = dict(
+        name="edge_ranks", route="cuda",
+        source="brotli_tpu_torch/csrc/edge_ranks.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:149",
+        max_abs_err=max(errs["K10"].values()),
+        ms=cuda_ms(lambda: kernels.edge_ranks(key_s, order, data, lnp, maxd,
+                                              ranks, cand, 13), 10),
+        device_ms=cuda_ms(lambda: kernels.edge_ranks(
+            key_s, order, data, lnp, maxd, ranks, cand, 13), 10,
+            queued=True),
+        plain_ms=cuda_ms(lambda: OPT.edge_ranks_plain(
+            key_s, order, data, lnp, maxd, ranks), 2),
+        nbytes=8 * n + 8 * n + n + 4 * len(ranks) * n,
+        # the neighbour's key, order and a word compare a rank: about 8
+        nops=n * len(ranks) * 8)
+    ns, nd = spos.shape[0], dloc.shape[0]
+    rows["K11"] = dict(
+        name="edge_slots", route="cuda",
+        source="brotli_tpu_torch/csrc/edge_slots.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:210",
+        max_abs_err=max(errs["K11"].values()),
+        ms=cuda_ms(k11, 10), device_ms=cuda_ms(k11, 10, queued=True),
+        plain_ms=cuda_ms(k11_plain, 3),
+        nbytes=(4 * ncand * n + n + 24 * ns + 16 * nd +
+                4 * (64 + 64 * 256 + 256 * 256) + 8 * nslots * n + 8 * n),
+        # a distance cost (about 12 operations) a slot and position
+        nops=n * nslots * 12)
+    del key, key_s, order
+
+    # the card's operations of one segment, with the plain edges (the
+    # dispatchers swapped for the plain versions) and with the kernels
+    args = (data, npos, maxd, bits_tab, ctx_tab, copyq, distq, *seeds,
+            dloc, dval, 0)
+    seg_fn = lambda: OPT.dp_v3_segment(*args, capm=b // OPT.CAPM_DIV)
+    swap = dict(
+        edge_keys=OPT.edge_keys_plain,
+        edge_ranks=lambda ks, o, d, np_, w, r, out, c: out.__setitem__(
+            (slice(None), slice(c, c + len(r))),
+            OPT.edge_ranks_plain(ks, o, d, np_, w, r)),
+        edge_slots=OPT.edge_slots_plain)
+    keep = {k: getattr(OPT, k) for k in swap}
+    for k, f in swap.items():
+        setattr(OPT, k, f)
+    try:
+        ops_plain, kern_plain = device_ops(seg_fn)
+        ms_plain = cuda_ms(seg_fn, 2)
+        want = seg_fn()
+    finally:
+        for k, f in keep.items():
+            setattr(OPT, k, f)
+    ops, kern = device_ops(seg_fn, show=True)
+    ms_seg = cuda_ms(seg_fn, 5)
+    got = seg_fn()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"[3] one dp_v3_segment ({n} positions): plain edges {ops_plain} "
+          f"device operations ({kern_plain} kernels) in {ms_plain:.3f} ms; "
+          f"K9-K11 {ops} ({kern} kernels) in {ms_seg:.3f} ms (one call, "
+          f"CUDA events) [{card}]; the same result: {same}", flush=True)
+    if ops > 100 or not same:
+        sys.exit(f"chip_smoke: one dp_v3_segment took {ops} device "
+                 f"operations (at most 100), or differs with the plain "
+                 f"edges")
+    return ops_plain, ops
+
+
+def device_ops(fn, show=False):
+    """The card's operations (kernels, copies, memsets) of one call of
+    fn after a warm-up (torch.profiler), and how many were kernels; with
+    `show`, print them by name."""
+    from brotli_tpu_torch.utils.trace import device_profile
+    fn()
+    torch.cuda.synchronize()
+    with device_profile() as prof:
+        fn()
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [x for x in names if not x.lower().startswith(("memcpy",
+                                                          "memset"))]
+    if show:
+        counts = {}
+        for x in names:
+            counts[x] = counts.get(x, 0) + 1
+        print("    " + "; ".join(f"{k} x{v}" for k, v in counts.items()))
+    return len(names), len(kern)
+
+
+def dp_launches(nseg, scan="dp_scan", nlevels=2):
+    """The kernel launches of `nseg` v3 DP segments: K9 and K10 once a
+    level, K11, K1, the scan and K4 once a segment."""
+    return {"edge_keys": nlevels * nseg, "edge_ranks": nlevels * nseg,
+            "edge_slots": nseg, "suffix_min": nseg, scan: nseg,
+            "dp_backtrack": nseg}
+
+
 def bound(nbytes, nops):
     tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -789,10 +1059,9 @@ def public_surface(corpus, q11_out, q5_out, card):
     native_q11 = item("compress q11, 4 MiB, encoder='native'",
                       lambda: bt.compress(part, quality=11,
                                           encoder="native"), len(part))
-    if any(launches[k] != 1
-           for k in ("suffix_min", "dp_scan", "dp_backtrack")):
+    if any(launches[k] != v for k, v in dp_launches(1).items()):
         sys.exit(f"chip_smoke: the card's q11 route launched {launches}, "
-                 f"not K1, K3 and K4 once each")
+                 f"not {dp_launches(1)}")
     if on_card == native_q11:
         sys.exit("chip_smoke: the card's and the native q11 streams agree")
     if bt.decompress(on_card) != part or bt.decompress(native_q11) != part:
@@ -1053,11 +1322,10 @@ def dp_variants(corpus, rows, dev, card):
         lambda: bt.compress(corpus, quality=11, dp=v1), trace, kernels,
         "q11 v1", corpus, bt.decompress, card)
     nseg1 = -(-len(corpus) // OPT.SEG)
-    if (launches_v1["dp_scan_v1"], launches_v1["dp_backtrack"],
-            launches_v1["suffix_min"], launches_v1["dp_scan"]) != \
-            (nseg1, nseg1, 0, 0):
-        sys.exit(f"chip_smoke: the v1 path launched {launches_v1}, not K7 "
-                 f"and K4 {nseg1} times each and K1, K3 never")
+    want1 = dict(dp_launches(nseg1, "dp_scan_v1"), suffix_min=0, dp_scan=0)
+    if any(launches_v1[k] != v for k, v in want1.items()):
+        sys.exit(f"chip_smoke: the v1 path launched {launches_v1}, not "
+                 f"{want1}")
     ring = DP(ring_scan=True)
     kernels.reset_launches()
     out, wall = timed(lambda: bt.compress(corpus, quality=11, dp=ring))
@@ -1222,8 +1490,8 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
         if bt.decompress(out) != corpus:
             sys.exit(f"chip_smoke: the q11 mesh ({label}) stream does not "
                      f"decode")
-        if launched != {"suffix_min": nseg, scan: nseg,
-                        "dp_backtrack": nseg, "chain_select": want_k2}:
+        if launched != dict(dp_launches(nseg, scan),
+                            chain_select=want_k2):
             sys.exit(f"chip_smoke: the q11 mesh ({label}) launched "
                      f"{launched}")
     # the card against the CPU, on 256 KiB in 4 shards with 128 KiB DP
@@ -1358,7 +1626,7 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
         "compress(q11, mode 1, encoder='device')",
         lambda: bt.compress(part, mode=1, quality=11, encoder="device",
                             device=dev),
-        {"suffix_min": nseg, "dp_scan": nseg, "dp_backtrack": nseg})
+        dp_launches(nseg))
     print(f"    compress q11 mode 1, encoder='device', 4 MiB: {len(part)} "
           f"B -> {len(out11)} B in {wall:.3f} s = "
           f"{len(part) / wall / 1e6:.3f} MB/s [{card}]; launches {got}; "
@@ -1518,7 +1786,7 @@ def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
         "Compressor(q11, mode 1)",
         lambda: fed(bt.Compressor(quality=11, mode=1, device=dev), part,
                     mib),
-        {"suffix_min": nseg, "dp_scan": nseg, "dp_backtrack": nseg})
+        dp_launches(nseg))
     check_flushed("Compressor(q11, mode 1)", got, part)
     print(f"    Compressor q11 mode 1, {len(part)} B in {mib} B pieces, "
           f"flushed: "
@@ -1716,8 +1984,7 @@ def _last_slice(corpus, card, dev, trials, cpu_run, tmp):
                for i in range(n))
     # K2: a block a device, a q5 shard, a q11 seed after the first shard
     # (each buffer one matcher segment)
-    want = {"chain_select": 3 * n - 1, "suffix_min": nseg,
-            "dp_scan": nseg, "dp_backtrack": nseg}
+    want = dict(dp_launches(nseg), chain_select=3 * n - 1)
     print(f"[16] entry.dryrun_multichip({n}) over [cuda:0] * {n}",
           flush=True)
     kernels.reset_launches()
@@ -1793,6 +2060,9 @@ def main():
     maxd = C.max_backward_distance(22)
     seg = arr[:OPT.SEG_V3]
     b = OPT._bucket_v3(len(seg))
+    rows = {}
+    seg_ops = edge_kernels(arr, seg, maxd, rows, dev, card)
+    torch.cuda.empty_cache()
     seed = OPT._seed_parse(seg, maxd, 0)
     tables = OPT._cost_tables(seg, seed, lit_table=True, cfg=OPT.DPConfig())
     dict_g = OPT._dict_probe_global(seg, [seed], 0, maxd)
@@ -1806,7 +2076,6 @@ def main():
     n = pd.shape[1]
     nb = n // OPT.B
     nslots = pd.shape[0]
-    rows = {}
 
     # K1 on seeded slots at the segment's width first (each case's rows
     # are freed before the next), then on the real segment; every
@@ -1998,10 +2267,16 @@ def main():
     launches, q11_out = three_runs(
         lambda: bt.compress(corpus, quality=11), trace, kernels, "q11",
         corpus, bt.decompress, card)
-    missing = [k for k in ("suffix_min", "dp_scan", "dp_backtrack")
-               if launches[k] == 0]
-    if missing:
-        sys.exit(f"chip_smoke: the q11 path launched no {missing}")
+    nseg4 = launches["suffix_min"]
+    want4 = dp_launches(nseg4)
+    if nseg4 == 0 or any(launches[k] != v for k, v in want4.items()):
+        sys.exit(f"chip_smoke: the q11 path launched {launches}, not "
+                 f"{want4}")
+    calls, secs = trace.report()["dp.dispatch"]
+    print(f"    dp.dispatch of the traced run: {secs * 1e3:.1f} ms over "
+          f"{calls} segments (host clock); device operations per "
+          f"dp_v3_segment {seg_ops[1]} (plain edges {seg_ops[0]}) [{card}]",
+          flush=True)
 
     # -- 5. kernels and plain versions give the same stream ---------------
     prefix = corpus[:512 << 10]
@@ -2082,7 +2357,8 @@ def main():
                          dp_scan_v1=launches_v1["dp_scan_v1"],
                          dp_scan_ring=launches_ring["dp_scan_ring"])
     kern = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
+                "K10", "K11"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],

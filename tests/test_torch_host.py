@@ -478,10 +478,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32),
             torch.zeros(64, dtype=torch.int32), None, 4093)
+    data = torch.zeros(4096, dtype=torch.uint8)
+    key = torch.zeros(4096, dtype=torch.int64)
+    cand = torch.zeros((4096, 27), dtype=torch.int32)
+    seeds = [torch.zeros(8, dtype=torch.int64)] * 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.edge_keys(data, 4093, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.edge_ranks(key, key, data, 4093, 1 << 20, (1, 2), cand, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.edge_slots(cand, data, 1 << 20,
+                           torch.zeros(64, dtype=torch.int32), *seeds,
+                           torch.zeros(1 << 16, dtype=torch.int32))
     assert kernels.LAUNCHES == {"suffix_min": 0, "dp_scan": 0,
                                 "dp_backtrack": 0, "chain_select": 0,
                                 "bitpack": 0, "lz_resolve": 0,
-                                "dp_scan_v1": 0, "dp_scan_ring": 0}
+                                "dp_scan_v1": 0, "dp_scan_ring": 0,
+                                "edge_keys": 0, "edge_ranks": 0,
+                                "edge_slots": 0}
 
 
 def test_profile_busy_time_is_the_union():
