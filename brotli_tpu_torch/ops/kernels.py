@@ -38,7 +38,10 @@ W = 64
 B = 4096
 MAX_SLOTS = 64      # suffix_min.cu's, dp_scan_v1.cu's and edge_slots.cu's
                     # most edge slots
-MAX_RANKS = 16      # edge_ranks.cu's most ranks a level
+MAX_RANKS = 16      # edge_ranks.cu's most ranks a level, and the words
+                    # of a level's row (64 bytes, zero-padded)
+MAX_RANK = 512      # its largest rank (the halo of a tile of sorted rows)
+MAX_LEVELS = 3      # its row pass's most levels
 EDGE_TILE = 4096    # edge_slots.cu's positions per CTA
 CHAIN_L = 4096      # chain_select.cu's chunk: n is a multiple of it
 CHAIN_S = 256       # its sub-chunk: the longest walk of one thread
@@ -49,7 +52,7 @@ PACK_TABLE = 2 * (256 + 704 + 64)  # its code table: code and length of
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
             "chain_select": 0, "bitpack": 0, "lz_resolve": 0,
             "dp_scan_v1": 0, "dp_scan_ring": 0, "edge_keys": 0,
-            "edge_ranks": 0, "edge_slots": 0}
+            "edge_ranks": 0, "edge_rows": 0, "edge_slots": 0}
 SLOW = {"dp_scan_v1": None, "dp_scan_ring": None}
 
 _libs = {}
@@ -74,9 +77,9 @@ _SIGNATURES = {
                        _P, _P],
     "btt_edge_keys": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_longlong, _P],
-    "btt_edge_ranks": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, _P],
+    "btt_edge_ranks": [_P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, _P],
+    "btt_edge_rows": [_P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P],
     "btt_edge_slots": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
                        ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -377,40 +380,64 @@ def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int,
 
 
 def edge_keys(data, npos, plen):
-    """K9 on the card: the segment's uint8 bytes (n,) -> the int64 (n,)
-    sort keys of the level of `plen` prefix bytes (4, 8 or 16) below the
-    level's `npos`."""
+    """K9 on the card: the segment's uint8 bytes (n,), 16-byte aligned
+    with n a multiple of 16 (a bucket), -> the int32 (n,) sort keys (the
+    JAX uint32 key - 2**31) of the level of `plen` prefix bytes (4, 8 or
+    16) below the level's `npos`."""
     _check(data, "data", 1, torch.uint8)
     n = data.shape[0]
-    if not 16 <= n < 1 << 31 or plen not in (4, 8, 16):
+    if not 16 <= n < 1 << 31 or n % 16 or data.data_ptr() % 16 or \
+            plen not in (4, 8, 16):
         raise ValueError("edge_keys: bad shapes or arguments")
-    key = torch.empty(n, dtype=torch.int64, device=data.device)
+    key = torch.empty(n, dtype=torch.int32, device=data.device)
     _launch("edge_keys", "btt_edge_keys", data.device, data.data_ptr(),
             key.data_ptr(), n, plen, int(npos))
     _count("edge_keys")
     return key
 
 
-def edge_ranks(key_s, order, data, npos, max_distance, ranks, out, col):
-    """K10 on the card: a level's stably sorted int64 keys and their
-    int64 order (n,), the uint8 bytes (n,) -> the level's candidates
-    (len << 25 | dist) written as int32 into columns [col, col +
-    len(ranks)) of `out` (n, ncand), which is returned."""
-    _check(key_s, "key_s", 1, torch.int64)
+def edge_ranks(key_s, order, data, npos, max_distance, ranks, words):
+    """K10's level launch on the card: a level's stably sorted int32 keys
+    and their int64 order (n,), the uint8 bytes (n,) (16-byte aligned, n
+    a multiple of 16) -> the level's candidates (len << 25 | dist) in
+    position order into the int32 `words` (n, MAX_RANKS), 16-byte
+    aligned, zero past len(ranks)."""
+    _check(key_s, "key_s", 1)
     _check(order, "order", 1, torch.int64)
     _check(data, "data", 1, torch.uint8)
-    _check(out, "out", 2)
+    _check(words, "words", 2)
     n = key_s.shape[0]
     nranks = len(ranks)
-    if order.shape[0] != n or data.shape[0] != n or out.shape[0] != n or \
-            not 32 <= n < 1 << 31 or not 1 <= nranks <= MAX_RANKS or \
-            min(ranks) < 1 or col < 0 or col + nranks > out.shape[1]:
+    if order.shape[0] != n or data.shape[0] != n or \
+            words.shape != (n, MAX_RANKS) or words.data_ptr() % 16 or \
+            data.data_ptr() % 16 or n % 16 or not 32 <= n < 1 << 31 or \
+            not 1 <= nranks <= MAX_RANKS or min(ranks) < 1 or \
+            max(ranks) > MAX_RANK:
         raise ValueError("edge_ranks: bad shapes or arguments")
     rk = (ctypes.c_int * nranks)(*ranks)
     _launch("edge_ranks", "btt_edge_ranks", key_s.device, key_s.data_ptr(),
-            order.data_ptr(), data.data_ptr(), out.data_ptr(), n,
-            out.shape[1], col, rk, nranks, int(npos), int(max_distance))
+            order.data_ptr(), data.data_ptr(), words.data_ptr(), n, rk,
+            nranks, int(npos), int(max_distance))
     _count("edge_ranks")
+
+
+def edge_rows(words, nranks):
+    """K10's row pass on the card: the levels' rows (int32 (nlevels, n,
+    MAX_RANKS), 16-byte aligned) -> the int32 (n, sum(nranks)) candidate
+    table, each level's first nranks[l] words of a row side by side."""
+    _check(words, "words", 3)
+    nlevels, n, stride = words.shape
+    if len(nranks) != nlevels or not 1 <= nlevels <= MAX_LEVELS or \
+            not all(1 <= r <= MAX_RANKS for r in nranks) or \
+            stride != MAX_RANKS or words.data_ptr() % 16 or \
+            not 0 < n < 1 << 31:
+        raise ValueError("edge_rows: bad shapes or arguments")
+    out = torch.empty((n, sum(nranks)), dtype=torch.int32,
+                      device=words.device)
+    nr = (ctypes.c_int * nlevels)(*nranks)
+    _launch("edge_ranks", "btt_edge_rows", words.device, words.data_ptr(),
+            out.data_ptr(), n, nr, nlevels)
+    _count("edge_rows")
     return out
 
 

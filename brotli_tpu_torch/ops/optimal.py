@@ -10,7 +10,8 @@ a 2 or 4 MiB bucket):
      nearest prior occurrences sharing a 4- or 8-byte prefix (and a
      16-byte one with `level3`) and their capped match lengths, per
      level a sort key (K9, csrc/edge_keys.cu), a stable torch.sort and
-     the ranks (K10, csrc/edge_ranks.cu); then the slot tables (K11,
+     the ranks (K10, csrc/edge_ranks.cu, whole 64-byte rows a level),
+     then K10's row pass into one table; then the slot tables (K11,
      csrc/edge_slots.cu): those candidates, continuation edges inside
      the seed parse's long matches and an atomic static-dictionary
      slot, and the literal costs;
@@ -196,12 +197,15 @@ def _words(data, nwords=CAPD // 4):
 
 def edge_keys_plain(data, npos, plen):
     """K9, plain version of the key lines of optimal_jax._level_candidates
-    with the hashes of _edges_slots: the int64 (n,) sort key of every
-    position for the level of `plen` prefix bytes (4, 8 or 16), hval <<
-    14 | pos >> 9 below the level's `npos` (the segment's npos - (plen -
-    4), at least 0, which the caller passes) and 1 << 31 | pos from
-    there; hval is the level's 17-bit hash of the first plen cyclic
-    bytes."""
+    with the hashes of _edges_slots: the int32 (n,) sort key of every
+    position for the level of `plen` prefix bytes (4, 8 or 16), the JAX
+    package's uint32 key minus 2**31 (its bit 31 flipped), so that
+    signed int32 order is the uint32 order and a stable torch.sort gives
+    lax.sort's permutation. The JAX key is hval << 14 | pos >> 9 below
+    the level's `npos` (the segment's npos - (plen - 4), at least 0,
+    which the caller passes) and 1 << 31 | pos from there; hval is the
+    level's 17-bit hash of the first plen cyclic bytes. Live rows are
+    thus negative, padding rows not."""
     w = _words(data, plen // 4)
     if plen == 4:
         hval = u32.shr(u32.mul(w[0], HASH_MUL), 15)
@@ -213,32 +217,35 @@ def edge_keys_plain(data, npos, plen):
                        u32.mul(w[2], HASH_MUL3) ^ u32.mul(w[3], HASH_MUL4),
                        15)
     pos = torch.arange(data.shape[0], dtype=torch.int64, device=data.device)
-    return torch.where(pos < npos, (hval << 14) | (pos >> 9),
-                       (1 << 31) | pos)
+    key = torch.where(pos < npos, (hval << 14) | (pos >> 9),
+                      (1 << 31) | pos)
+    return (key - (1 << 31)).to(torch.int32)
 
 
 def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks):
     """K10, plain version of the rank loop of optimal_jax._level_candidates
     and its sort back to position order. key_s, order: the stable sort
-    of K9's keys (int64; only a stable sort gives the JAX package's
-    rank-k neighbours, the key not being unique). For sorted row i and
-    rank k, the candidate is row i - k when both share the hash (key >>
-    14; padding rows keep the high bit, and rows before the head take
-    _shift_up's fills, so neither ever matches), the row is live, and
-    0 < dist <= max_distance; its length is the common prefix of the 32
-    cyclic bytes at both positions, capped at the level's npos + 3 - pos
-    and dropped below 2. Returns int32 (n, len(ranks)) len << 25 | dist
-    (0 where none), in position order."""
+    of K9's int32 keys and its int64 order (only a stable sort gives the
+    JAX package's rank-k neighbours, the key not being unique). For
+    sorted row i and rank k, the candidate is row i - k when both share
+    the hash (key >> 14, arithmetic: the JAX hash minus 2**17; padding
+    rows are not negative, and rows before the head take _shift_up's
+    fill of 2**17, above every int32 key >> 14, so neither ever
+    matches), the row is live (key < 0), and 0 < dist <= max_distance;
+    its length is the common prefix of the 32 cyclic bytes at both
+    positions, capped at the level's npos + 3 - pos and dropped below 2.
+    Returns int32 (n, len(ranks)) len << 25 | dist (0 where none), in
+    position order."""
     n = key_s.shape[0]
     pos_s = order
     w_s = [x[order] for x in _words(data)]
-    h_s = u32.shr(key_s, 14)
-    live = key_s < (1 << 31)
+    h_s = key_s >> 14
+    live = key_s < 0
     guard = torch.clamp(npos + 3 - pos_s, min=0)
     out = torch.empty((n, len(ranks)), dtype=torch.int32, device=key_s.device)
     packed_s = torch.empty_like(out)
     for j, k in enumerate(ranks):
-        same = (h_s == _shift_up(h_s, k, u32.MASK32)) & live
+        same = (h_s == _shift_up(h_s, k, 1 << 17)) & live
         dist = pos_s - _shift_up(pos_s, k, -1)
         valid = same & (dist > 0) & (dist <= max_distance)
         mlen = torch.zeros(n, dtype=torch.int64, device=key_s.device)
@@ -255,6 +262,14 @@ def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks):
     return out
 
 
+def edge_rows_plain(words, nranks):
+    """K10's row pass, plain version: the levels' rows (int32 (nlevels,
+    n, 16), a level's candidates in its first nranks[l] words) side by
+    side in one int32 (n, sum(nranks)) candidate table."""
+    return torch.cat([words[lvl, :, :nr] for lvl, nr in enumerate(nranks)],
+                     1)
+
+
 def edge_keys(data, npos, plen):
     """K9: the plain version on the CPU, csrc/edge_keys.cu on the card."""
     if data.device.type == "cpu":
@@ -262,34 +277,42 @@ def edge_keys(data, npos, plen):
     return kernels.edge_keys(data, npos, plen)
 
 
-def edge_ranks(key_s, order, data, npos, max_distance, ranks, out, col):
-    """K10 into columns [col, col + len(ranks)) of the int32 (n, ncand)
-    candidate table `out` (filled in place, one level at a time): the
-    plain version on the CPU, csrc/edge_ranks.cu on the card."""
+def edge_ranks(key_s, order, data, npos, max_distance, ranks, words):
+    """K10's level launch into the int32 (n, 16) `words` (position order,
+    zero past len(ranks)), filled in place: the plain version on the CPU,
+    csrc/edge_ranks.cu on the card."""
     if key_s.device.type == "cpu":
-        out[:, col:col + len(ranks)] = edge_ranks_plain(
-            key_s, order, data, npos, max_distance, ranks)
-        return out
-    return kernels.edge_ranks(key_s, order, data, npos, max_distance, ranks,
-                              out, col)
+        words.zero_()
+        words[:, :len(ranks)] = edge_ranks_plain(key_s, order, data, npos,
+                                                 max_distance, ranks)
+        return
+    kernels.edge_ranks(key_s, order, data, npos, max_distance, ranks, words)
+
+
+def edge_rows(words, nranks):
+    """K10's row pass: the plain version on the CPU, csrc/edge_ranks.cu's
+    second kernel on the card."""
+    if words.device.type == "cpu":
+        return edge_rows_plain(words, nranks)
+    return kernels.edge_rows(words, nranks)
 
 
 def _candidates(data, npos, max_distance, levels=LEVELS):
-    """Every level's rank candidates: K9, the stable sort, K10 per level,
-    into one int32 (n, ncand) table (13 + 14 columns; 37 with the
-    16-byte level), each level on its own npos - (plen - 4)."""
-    ncand = sum(len(ranks) for _, ranks in levels)
-    cand = torch.empty((data.shape[0], ncand), dtype=torch.int32,
-                       device=data.device)
-    col = 0
-    for plen, ranks in levels:
+    """Every level's rank candidates: per level K9, the stable sort and
+    K10's level launch (the level's candidates as whole 16-word rows in
+    position order), each level on its own npos - (plen - 4); then K10's
+    row pass into one int32 (n, ncand) table (13 + 14 columns; 37 with
+    the 16-byte level)."""
+    n = data.shape[0]
+    words = torch.empty((len(levels), n, kernels.MAX_RANKS),
+                        dtype=torch.int32, device=data.device)
+    for lvl, (plen, ranks) in enumerate(levels):
         lvl_npos = max(npos - (plen - 4), 0)
         key_s, order = torch.sort(edge_keys(data, lvl_npos, plen),
                                   stable=True)
-        edge_ranks(key_s, order, data, lvl_npos, max_distance, ranks, cand,
-                   col)
-        col += len(ranks)
-    return cand
+        edge_ranks(key_s, order, data, lvl_npos, max_distance, ranks,
+                   words[lvl])
+    return edge_rows(words, [len(ranks) for _, ranks in levels])
 
 
 def _slot_rows(cand, dist_sym_bits_q, seed_pos, seed_len, seed_dist):
@@ -1349,7 +1372,9 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
 
     `seg`: the DP segment, which is also the halo's cap; None means
     SEG_V3 with the BUCKETS_V3 pads, any other size pads to itself (the
-    JAX package's dry run sets SEG_V3 and its buckets to 64 KiB so).
+    JAX package's dry run sets SEG_V3 and its buckets to 64 KiB so); on
+    the card a multiple of 16, as K9 and K10 read the segment in aligned
+    16-byte chunks (their wrappers raise otherwise).
 
     Of `dp` (a DPConfig, None = the default) only what the JAX mesh's
     functions read reaches this path: ring_scan and icell (K8 in place

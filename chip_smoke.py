@@ -538,25 +538,30 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     npos_t, *rest_t = OPT.segment_inputs(arr, [seed], dict_g, 0, hi_t, b,
                                          dev)
     zeros = torch.zeros_like(data)
-    errs = {"K9": {}, "K10": {}, "K11": {}}
+    errs = {"K9": {}, "K10": {}, "K10b": {}, "K11": {}}
 
     def cands(label, d, np_, window, lvls):
-        """K9, the sort and K10 per level on the card, each against its
-        plain version on the same inputs; returns the kernels' table."""
-        cand = torch.empty((n, sum(len(r) for _, r in lvls)),
-                           dtype=torch.int32, device=dev)
-        col = 0
-        for plen, ranks in lvls:
+        """K9, the sort and K10's level launch per level, then K10's row
+        pass, on the card, each against its plain version on the same
+        inputs; returns the kernels' table."""
+        words = torch.empty((len(lvls), n, kernels.MAX_RANKS),
+                            dtype=torch.int32, device=dev)
+        for lvl, (plen, ranks) in enumerate(lvls):
             lnp = max(np_ - (plen - 4), 0)
             key = kernels.edge_keys(d, lnp, plen)
             errs["K9"][f"{label} {plen}"] = max_abs_err(
                 key, OPT.edge_keys_plain(d, lnp, plen))
             key_s, order = torch.sort(key, stable=True)
-            kernels.edge_ranks(key_s, order, d, lnp, window, ranks, cand, col)
-            errs["K10"][f"{label} {plen}"] = max_abs_err(
-                cand[:, col:col + len(ranks)],
-                OPT.edge_ranks_plain(key_s, order, d, lnp, window, ranks))
-            col += len(ranks)
+            kernels.edge_ranks(key_s, order, d, lnp, window, ranks,
+                               words[lvl])
+            want = torch.zeros_like(words[lvl])
+            want[:, :len(ranks)] = OPT.edge_ranks_plain(key_s, order, d, lnp,
+                                                        window, ranks)
+            errs["K10"][f"{label} {plen}"] = max_abs_err(words[lvl], want)
+        nranks = [len(r) for _, r in lvls]
+        cand = kernels.edge_rows(words, nranks)
+        errs["K10b"][label] = max_abs_err(
+            cand, OPT.edge_rows_plain(words, nranks))
         return cand
 
     def slots(label, *args, **kw):
@@ -603,17 +608,34 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
                           ("zeros", zeros, n - 3)):
         cands(label, d, np_, maxd, OPT.LEVELS)
     torch.cuda.synchronize()
-    for k in ("K9", "K10", "K11"):
+    for k in ("K9", "K10", "K10b", "K11"):
         print(f"[3] {k}: max_abs_err {errs[k]}", flush=True)
 
-    # timed: the 8-byte level (14 ranks) for K9 and K10, the default 29
-    # slots for K11, each alone and beside its plain version
+    # timed: the 8-byte level (14 ranks) for K9 and K10's level launch,
+    # the default 27 columns for K10's row pass, the default 29 slots for
+    # K11, each alone and beside its plain version; the level's stable
+    # sort of K9's int32 keys beside the first K9's int64 keys
+    # (a library call, timed as a measurement only)
     plen, ranks = OPT.LEVELS[1]
     lnp = npos - (plen - 4)
     key = kernels.edge_keys(data, lnp, plen)
     key_s, order = torch.sort(key, stable=True)
+    key64 = key.to(torch.int64) + (1 << 31)
+    sort32 = cuda_ms(lambda: torch.sort(key, stable=True), 10, queued=True)
+    sort64 = cuda_ms(lambda: torch.sort(key64, stable=True), 10, queued=True)
+    print(f"[3] the level's torch.sort(stable=True) of {n} keys alone: "
+          f"int32 {sort32:.4f} ms, int64 {sort64:.4f} ms [{card}]",
+          flush=True)
+    del key64
     ncand = cand.shape[1]
     nslots = ncand + 2
+    nranks = [len(r) for _, r in OPT.LEVELS]
+    words = torch.empty((len(nranks), n, kernels.MAX_RANKS),
+                        dtype=torch.int32, device=dev)
+    ln = npos  # the row pass's inputs: the 4-byte level's rows too
+    ks, od = torch.sort(kernels.edge_keys(data, ln, 4), stable=True)
+    kernels.edge_ranks(ks, od, data, ln, maxd, OPT.LEVELS[0][1], words[0])
+    del ks, od
     k11 = lambda: kernels.edge_slots(cand, data, maxd, distq, *seeds,
                                      bits_tab, **v3)
     k11_plain = lambda: OPT.edge_slots_plain(cand, data, maxd, distq,
@@ -627,7 +649,7 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
         device_ms=cuda_ms(lambda: kernels.edge_keys(data, lnp, plen), 10,
                           queued=True),
         plain_ms=cuda_ms(lambda: OPT.edge_keys_plain(data, lnp, plen), 3),
-        nbytes=n + 8 * n,
+        nbytes=n + 4 * n,
         # two words, two multiplies, the key: about 20 operations
         nops=n * 20)
     rows["K10"] = dict(
@@ -636,15 +658,34 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
         replaces="brotli_tpu/ops/optimal_jax.py:149",
         max_abs_err=max(errs["K10"].values()),
         ms=cuda_ms(lambda: kernels.edge_ranks(key_s, order, data, lnp, maxd,
-                                              ranks, cand, 13), 10),
+                                              ranks, words[1]), 10),
         device_ms=cuda_ms(lambda: kernels.edge_ranks(
-            key_s, order, data, lnp, maxd, ranks, cand, 13), 10,
+            key_s, order, data, lnp, maxd, ranks, words[1]), 10,
             queued=True),
         plain_ms=cuda_ms(lambda: OPT.edge_ranks_plain(
             key_s, order, data, lnp, maxd, ranks), 2),
-        nbytes=8 * n + 8 * n + n + 4 * len(ranks) * n,
+        # the keys, the order, the bytes; the level's words (its rows
+        # are padded to 64 bytes, which the bound does not count)
+        nbytes=4 * n + 8 * n + n + 4 * len(ranks) * n,
         # the neighbour's key, order and a word compare a rank: about 8
         nops=n * len(ranks) * 8)
+    rows["K10b"] = dict(
+        name="edge_rows", route="cuda",
+        source="brotli_tpu_torch/csrc/edge_ranks.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:174",
+        max_abs_err=max(errs["K10b"].values()),
+        ms=cuda_ms(lambda: kernels.edge_rows(words, nranks), 10),
+        device_ms=cuda_ms(lambda: kernels.edge_rows(words, nranks), 10,
+                          queued=True),
+        plain_ms=cuda_ms(lambda: OPT.edge_rows_plain(words, nranks), 3),
+        # the one PyTorch call that makes the same table (the port does
+        # not call it: a measurement only)
+        library_ms=cuda_ms(lambda: torch.cat(
+            [words[lvl, :, :nr] for lvl, nr in enumerate(nranks)], 1), 3),
+        # the levels' words read, the table written
+        nbytes=8 * ncand * n,
+        # a copy a word
+        nops=n * ncand)
     ns, nd = spos.shape[0], dloc.shape[0]
     rows["K11"] = dict(
         name="edge_slots", route="cuda",
@@ -657,7 +698,7 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
                 4 * (64 + 64 * 256 + 256 * 256) + 8 * nslots * n + 8 * n),
         # a distance cost (about 12 operations) a slot and position
         nops=n * nslots * 12)
-    del key, key_s, order
+    del key, key_s, order, words
 
     # the card's operations of one segment, with the plain edges (the
     # dispatchers swapped for the plain versions) and with the kernels
@@ -666,9 +707,10 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     seg_fn = lambda: OPT.dp_v3_segment(*args, capm=b // OPT.CAPM_DIV)
     swap = dict(
         edge_keys=OPT.edge_keys_plain,
-        edge_ranks=lambda ks, o, d, np_, w, r, out, c: out.__setitem__(
-            (slice(None), slice(c, c + len(r))),
-            OPT.edge_ranks_plain(ks, o, d, np_, w, r)),
+        edge_ranks=lambda ks, o, d, np_, w, r, words: words.copy_(
+            torch.nn.functional.pad(OPT.edge_ranks_plain(ks, o, d, np_, w, r),
+                                    (0, words.shape[1] - len(r)))),
+        edge_rows=OPT.edge_rows_plain,
         edge_slots=OPT.edge_slots_plain)
     keep = {k: getattr(OPT, k) for k in swap}
     for k, f in swap.items():
@@ -718,11 +760,12 @@ def device_ops(fn, show=False):
 
 
 def dp_launches(nseg, scan="dp_scan", nlevels=2):
-    """The kernel launches of `nseg` v3 DP segments: K9 and K10 once a
-    level, K11, K1, the scan and K4 once a segment."""
+    """The kernel launches of `nseg` v3 DP segments: K9 and K10's level
+    launch once a level, K10's row pass, K11, K1, the scan and K4 once a
+    segment."""
     return {"edge_keys": nlevels * nseg, "edge_ranks": nlevels * nseg,
-            "edge_slots": nseg, "suffix_min": nseg, scan: nseg,
-            "dp_backtrack": nseg}
+            "edge_rows": nseg, "edge_slots": nseg, "suffix_min": nseg,
+            scan: nseg, "dp_backtrack": nseg}
 
 
 def bound(nbytes, nops):
@@ -2235,9 +2278,11 @@ def main():
 
     for k, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
+        lib = (f", library {r['library_ms']:.3f} ms"
+               if "library_ms" in r else "")
         print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms one call "
               f"(the card alone {r['device_ms']:.3f} ms), plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) at n={nk if k == 'K2' else n} [{card}]")
     mhz = float(smi("clocks.max.sm").split()[0])
     print(f"    K4 dp_backtrack: bound by bytes "
@@ -2358,7 +2403,7 @@ def main():
                          dp_scan_ring=launches_ring["dp_scan_ring"])
     kern = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10", "K11"):
+                "K10", "K10b", "K11"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],
@@ -2366,7 +2411,8 @@ def main():
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          device_ms=r["device_ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                         bound_by=r["bound_by"], library_ms=None))
+                         bound_by=r["bound_by"],
+                         library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kern}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

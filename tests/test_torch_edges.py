@@ -3,7 +3,12 @@ K10 `edge_ranks`, K11 `edge_slots` in brotli_tpu_torch.ops.optimal)
 against the JAX package, bit for bit, on the CPU.
 
   (a) K9 then a stable sort then K10, per level (4, 8 and the 16-byte
-      level), against `optimal_jax._level_candidates`;
+      level), against `optimal_jax._level_candidates`: K9's int32 key is
+      the JAX key - 2**31 and its stable sort lax.sort's permutation;
+  (a2) numpy models of edge_ranks.cu's two launches (the CTA walk over
+      tiles of sorted rows with a kmax halo and the windows it stages,
+      writing 16-word rows at their positions; the row pass that sets
+      the levels' rows side by side) against the plain versions;
   (b) the composed `edge_slots_plain` against `_edges_slots`, against
       the slot rows and literal costs of `_dp_v3_impl` (captured where
       they enter the suffix-min and the scan) through `segment_tables`,
@@ -14,8 +19,9 @@ against the JAX package, bit for bit, on the CPU.
   (d) a numpy model of edge_slots.cu's fill (the scatter's per-tile
       records, the walk back over them, the in-tile scan) against the
       plain fill;
-  (e) dispatch: a CPU tensor never reaches a kernel launch, and the
-      kernels' wrappers refuse CPU tensors.
+  (e) dispatch: a CPU tensor never reaches a kernel launch, the
+      kernels' wrappers refuse CPU tensors, and K9's and K10's refuse
+      bytes off the 16-byte grid.
 
 Cases cover full, text-only and tail-padded segments (the cyclic words
 that the npos + 3 guard relies on), a (1 << 10) - 16 window, npos of 0,
@@ -136,6 +142,17 @@ def _jax_words_hash(data, plen):
 
 _level_ref = jax.jit(OJ._level_candidates, static_argnums=(4,))
 
+
+@jax.jit
+def _jax_key_sort(hval, npos):
+    """The key and lax.sort of optimal_jax._level_candidates (its lines
+    144-148): the uint32 key and the positions in sorted order."""
+    pos = jnp.arange(hval.shape[0], dtype=jnp.int32)
+    key = jnp.where(pos < npos,
+                    (hval << 14) | (pos.astype(jnp.uint32) >> 9),
+                    jnp.uint32(1 << 31) | pos.astype(jnp.uint32))
+    return key, jax.lax.sort((key, pos.astype(jnp.uint32)), num_keys=1)[1]
+
 NPOS_CASES = {"npos 0": 0, "npos n": SEG, "npos off grid": 12_345}
 
 
@@ -151,11 +168,17 @@ def test_level_candidates_match(host, plen, ranks, case):
     lvl_npos = max(npos - (plen - 4), 0)
     d = torch.from_numpy(data)
     key = O.edge_keys_plain(d, lvl_npos, plen)
-    assert key.dtype == torch.int64 and key.shape == (SEG,)
+    assert key.dtype == torch.int32 and key.shape == (SEG,)
     key_s, order = torch.sort(key, stable=True)
     got = O.edge_ranks_plain(key_s, order, d, lvl_npos, maxd, ranks)
     assert got.dtype == torch.int32 and got.shape == (SEG, len(ranks))
     w, hval = _jax_words_hash(data, plen)
+    # the int32 key is the JAX key - 2**31, and its stable sort is
+    # lax.sort's permutation, padding rows included
+    jkey, pos_u = _jax_key_sort(hval, jnp.int32(lvl_npos))
+    _eq(key.numpy().astype(np.int64) + (1 << 31), np.asarray(jkey))
+    _eq(order.numpy(), np.asarray(pos_u))
+    assert (key < 0).sum() == min(lvl_npos, SEG)
     want = _level_ref(w, jnp.arange(SEG, dtype=jnp.int32),
                       jnp.int32(lvl_npos), jnp.int32(maxd), ranks, hval)
     _eq(got.numpy(), np.stack([np.asarray(x) for x in want], 1)
@@ -187,6 +210,148 @@ def test_candidates_wrap_at_the_bucket_end():
     # the match at n - 8 against position 100 runs 16 bytes, 8 past the
     # end; the guard npos + 3 - pos lets 3 of them count
     assert int(got[SEG - 8].max()) >> 25 == 11
+
+
+# ---------------------------------------------------------------------
+# (a2) edge_ranks.cu's two launches, modelled
+# ---------------------------------------------------------------------
+
+def _windows(data):
+    """The 8 little-endian words of the 32 cyclic bytes at every
+    position, uint32 (n, 8)."""
+    n = data.shape[0]
+    b = data[(np.arange(n)[:, None] + np.arange(32)) % n]
+    return np.ascontiguousarray(b).view("<u4")
+
+
+def _tz_bytes(x):
+    return sum(((x & np.uint32((1 << (8 * (b + 1))) - 1)) == 0)
+               .astype(np.int64) for b in range(4))
+
+
+def _ranks_model(key_s, order, data, npos, max_distance, ranks, tile):
+    """edge_ranks.cu's level launch in numpy: a CTA of `tile` sorted rows
+    [i0, end) counts the rows among the kmax before it that are live and
+    share row i0's hash (a suffix of that halo) and stages them with the
+    tile; it gathers the window of each staged live row that shares its
+    hash with the staged row before or after it (the halo rows all do),
+    leaving the others' words random; each row's ranks then come from
+    the staged rows alone, written as a whole 16-word row at its
+    position, zero past the level's ranks."""
+    key = key_s.numpy().astype(np.int64)
+    pos = order.numpy()
+    n, kmax = len(key), max(ranks)
+    h, live = key >> 14, key < 0
+    words = _windows(data)
+    rng = np.random.default_rng(1)
+    out = np.full((n, kernels.MAX_RANKS), -7, np.int32)
+    for i0 in range(0, n, tile):
+        end = min(i0 + tile, n)
+        halo = slice(max(i0 - kmax, 0), i0)
+        g0 = i0 - int(np.sum(live[halo] & (h[halo] == h[i0])))
+        hs = h[g0:end]
+        same_prev = np.r_[False, hs[1:] == hs[:-1]]
+        same_next = np.r_[hs[:-1] == hs[1:], False]
+        need = live[g0:end] & ((np.arange(g0, end) < i0) | same_prev |
+                               same_next)
+        win = rng.integers(0, 1 << 32, (end - g0, 8), dtype=np.uint64) \
+            .astype(np.uint32)
+        win[need] = words[pos[g0:end][need]]
+        m = np.arange(i0 - g0, end - g0)
+        ti = g0 + m
+        guard = np.maximum(npos + 3 - pos[ti], 0)
+        row = np.zeros((len(m), kernels.MAX_RANKS), np.int32)
+        for r, k in enumerate(ranks):
+            mj = np.maximum(m - k, 0)
+            dist = pos[ti] - pos[g0 + mj]
+            ok = live[ti] & (m - k >= 0) & (h[g0 + mj] == h[ti]) & \
+                (dist > 0) & (dist <= max_distance)
+            x = win[m] ^ win[mj]
+            alive = np.ones(len(m), bool)
+            mlen = np.zeros(len(m), np.int64)
+            for w in range(8):
+                mlen += np.where(alive, _tz_bytes(x[:, w]), 0)
+                alive &= x[:, w] == 0
+            mlen = np.minimum(mlen, guard)
+            row[:, r] = np.where(ok & (mlen >= 2), (mlen << 25) | dist, 0)
+        out[pos[ti]] = row
+    return out
+
+
+def _rows_model(words, nranks, rows=128):
+    """edge_ranks.cu's row pass in numpy: a CTA of `rows` positions reads
+    their 16-word rows of every level into a (rows, ld) tile, each
+    level's first nranks[l] words side by side, and stores the tile
+    whole."""
+    nlevels, n, _ = words.shape
+    ld = sum(nranks)
+    out = np.full((n, ld), -7, np.int32)
+    for p0 in range(0, n, rows):
+        p = np.arange(p0, min(p0 + rows, n))
+        tile = np.zeros((len(p), ld), np.int32)
+        col = 0
+        for lvl, nr in enumerate(nranks):
+            tile[:, col:col + nr] = words[lvl, p, :nr]
+            col += nr
+        out[p] = tile
+    return out
+
+
+def _model_case(host, case, plen):
+    """(data, npos) for the model: the real segment; all-zero bytes (one
+    hash group, so every halo reaches row 0); random bytes whose head
+    repeats at the end, npos = n (windows across the wrap)."""
+    if case == "real":
+        seg = _segment(host, 0)
+        data, npos = seg["data"], seg["npos"]
+    elif case == "zeros":
+        data, npos = np.zeros(SEG, np.uint8), SEG - 3
+    else:
+        rng = np.random.default_rng(5)
+        data = rng.integers(0, 256, SEG).astype(np.uint8)
+        data[-8:] = data[:8]
+        data[100:116] = data[-8:].tolist() + data[:8].tolist()
+        data[-40:-8] = data[:32]
+        npos = SEG
+    return data, max(npos - (plen - 4), 0)
+
+
+@pytest.mark.parametrize("tile", [64, 100, 1024])
+@pytest.mark.parametrize("plen,ranks", LEVEL3, ids=["4", "8", "16"])
+@pytest.mark.parametrize("case", ["real", "zeros", "wrap"])
+def test_ranks_model_matches_plain(host, case, plen, ranks, tile):
+    """The CTA walk of tiles and a kmax halo (the 8-byte level's 512 rows
+    span 8 tiles of 64) gives the plain level's words, and the dispatcher
+    on the CPU the same 16-word rows, so a fault at a tile's edge shows
+    before the card."""
+    data, npos = _model_case(host, case, plen)
+    d = torch.from_numpy(data)
+    key_s, order = torch.sort(O.edge_keys_plain(d, npos, plen), stable=True)
+    want = O.edge_ranks_plain(key_s, order, d, npos, MAXD, ranks)
+    got = _ranks_model(key_s, order, data, npos, MAXD, ranks, tile)
+    _eq(got[:, :len(ranks)], want.numpy())
+    assert not got[:, len(ranks):].any()
+    rows = torch.full((SEG, kernels.MAX_RANKS), -1, dtype=torch.int32)
+    O.edge_ranks(key_s, order, d, npos, MAXD, ranks, rows)
+    _eq(rows, got)
+    assert (want >> 25).ge(2).any()
+    if case == "zeros":  # live sorted row i is position i: all found
+        assert bool((want[max(ranks):npos] >> 25).ge(2).all())
+
+
+@pytest.mark.parametrize("nranks", [(13, 14), (13, 14, 10), (16,)])
+def test_rows_model_matches_plain(nranks):
+    """The row pass over the levels' 16-word rows, with a part-full last
+    CTA, gives edge_rows_plain's table: each level's first nranks words
+    side by side, the rest of its row dropped."""
+    rng = np.random.default_rng(len(nranks))
+    n = 40 * 128 + 77
+    words = rng.integers(-(1 << 31), 1 << 31, (len(nranks), n, 16),
+                         dtype=np.int64).astype(np.int32)
+    want = O.edge_rows_plain(torch.from_numpy(words), list(nranks))
+    _eq(_rows_model(words, nranks), want.numpy())
+    _eq(want[:, -nranks[-1]:], words[-1, :, :nranks[-1]])
+    assert want.shape == (n, sum(nranks))
 
 
 # ---------------------------------------------------------------------
@@ -496,11 +661,14 @@ def test_cpu_tensors_never_launch(host, monkeypatch):
     _eq(key, O.edge_keys_plain(d, seg["npos"], 8))
     key_s, order = torch.sort(key, stable=True)
     ranks = O.LEVELS[1][1]
-    out = torch.zeros((SEG, 20), dtype=torch.int32)
-    O.edge_ranks(key_s, order, d, seg["npos"], MAXD, ranks, out, 3)
-    _eq(out[:, 3:3 + len(ranks)],
+    words = torch.full((2, SEG, kernels.MAX_RANKS), -1, dtype=torch.int32)
+    O.edge_ranks(key_s, order, d, seg["npos"], MAXD, ranks, words[1])
+    _eq(words[1, :, :len(ranks)],
         O.edge_ranks_plain(key_s, order, d, seg["npos"], MAXD, ranks))
-    assert not out[:, :3].any() and not out[:, 3 + len(ranks):].any()
+    assert not words[1, :, len(ranks):].any() and (words[0] == -1).all()
+    table = O.edge_rows(words, [3, len(ranks)])
+    _eq(table, O.edge_rows_plain(words, [3, len(ranks)]))
+    _eq(table[:, 3:], words[1, :, :len(ranks)])
     rows = _port_rows(host, seg, MAXD, O.LEVELS)
     port, _ = _v1_inputs(host, seg, MAXD)
     O.edges_v1(*port)
@@ -509,8 +677,45 @@ def test_cpu_tensors_never_launch(host, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         kernels.edge_keys(d, seg["npos"], 8)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
-        kernels.edge_ranks(key_s, order, d, seg["npos"], MAXD, ranks, out, 0)
+        kernels.edge_ranks(key_s, order, d, seg["npos"], MAXD, ranks,
+                           words[1])
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        kernels.edge_rows(words, [3, len(ranks)])
     cand = O._candidates(d, seg["npos"], MAXD)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         kernels.edge_slots(cand, d, MAXD, *port[4:], port[3])
     assert calls == []
+
+
+@pytest.mark.parametrize("case", ["aligned", "offset", "short"])
+def test_edge_wrappers_refuse_bytes_off_the_grid(case, monkeypatch):
+    """K9 and K10 read the bytes as whole aligned 16-byte chunks, so
+    their wrappers launch only for bytes that are 16-byte aligned and a
+    multiple of 16 long (a DP segment is a bucket slice, so always), and
+    raise before any launch otherwise. The device test of `_check` is
+    stubbed so the CPU tensors reach the wrappers' own checks."""
+    calls = []
+    monkeypatch.setattr(kernels, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "_launch", lambda *a: calls.append(a[1]))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES,
+                                                           0))
+    buf = torch.zeros(4096 + 64, dtype=torch.uint8)
+    lo = -buf.data_ptr() % 16 + (case == "offset")
+    n = 4096 - 8 if case == "short" else 4096
+    data = buf[lo:lo + n]
+    assert (data.data_ptr() % 16 == 0) == (case != "offset")
+    key_s = torch.zeros(n, dtype=torch.int32)
+    order = torch.arange(n, dtype=torch.int64)
+    words = torch.zeros((n, kernels.MAX_RANKS), dtype=torch.int32)
+    assert words.data_ptr() % 16 == 0
+    if case == "aligned":
+        assert kernels.edge_keys(data, n - 3, 8).shape == (n,)
+        kernels.edge_ranks(key_s, order, data, n - 3, MAXD, (1, 2), words)
+        assert calls == ["btt_edge_keys", "btt_edge_ranks"]
+        assert kernels.LAUNCHES["edge_keys"] == 1
+        return
+    with pytest.raises(ValueError, match="edge_keys"):
+        kernels.edge_keys(data, n - 3, 8)
+    with pytest.raises(ValueError, match="edge_ranks"):
+        kernels.edge_ranks(key_s, order, data, n - 3, MAXD, (1, 2), words)
+    assert calls == [] and not any(kernels.LAUNCHES.values())

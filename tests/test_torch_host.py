@@ -485,7 +485,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.edge_keys(data, 4093, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
-        kernels.edge_ranks(key, key, data, 4093, 1 << 20, (1, 2), cand, 0)
+        kernels.edge_ranks(key.to(torch.int32), key, data, 4093, 1 << 20,
+                           (1, 2), torch.zeros((4096, 16), dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.edge_rows(torch.zeros((2, 4096, 16), dtype=torch.int32),
+                          [13, 14])
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.edge_slots(cand, data, 1 << 20,
                            torch.zeros(64, dtype=torch.int32), *seeds,
@@ -495,7 +499,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 "bitpack": 0, "lz_resolve": 0,
                                 "dp_scan_v1": 0, "dp_scan_ring": 0,
                                 "edge_keys": 0, "edge_ranks": 0,
-                                "edge_slots": 0}
+                                "edge_rows": 0, "edge_slots": 0}
 
 
 def test_profile_busy_time_is_the_union():
