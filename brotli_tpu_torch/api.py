@@ -22,6 +22,7 @@ from .dec.device_decode import decompress_device
 from .dec.stream import StreamDecoder
 from .enc.encoder import StreamingEncoder, encode
 from .format import shared_dictionary as shd
+from .utils import trace
 
 # Compression modes (parity: c/include/brotli/encode.h BrotliEncoderMode).
 MODE_GENERIC = 0
@@ -123,14 +124,16 @@ def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
             shared = sd  # custom-word matching in the encoder
     if _on_start is not None:
         _on_start("compress", len(string))
-    try:
-        out = encode(bytes(string), quality=quality, lgwin=lgwin,
-                     lgblock=lgblock, mode=mode, dictionary=dictionary,
-                     large_window=large_window, base64_mode=base64_mode,
-                     shared=shared, encoder=encoder, backend=backend,
-                     device=device, dp=dp)
-    except ValueError as e:
-        raise error(str(e)) from e
+    with trace.request("compress", len(string)) as req:
+        try:
+            out = encode(bytes(string), quality=quality, lgwin=lgwin,
+                         lgblock=lgblock, mode=mode, dictionary=dictionary,
+                         large_window=large_window, base64_mode=base64_mode,
+                         shared=shared, encoder=encoder, backend=backend,
+                         device=device, dp=dp)
+        except ValueError as e:
+            raise error(str(e)) from e
+        req.done(len(out))
     if _on_finish is not None:
         _on_finish("compress", len(string), len(out))
     return out

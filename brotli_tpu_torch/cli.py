@@ -126,11 +126,6 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = _build_parser().parse_args(_expand_argv(list(argv)))
-    from .utils import trace
-    if args.verbose and trace.enabled():
-        import atexit
-        atexit.register(
-            lambda: print(trace.format_report(), file=sys.stderr))
     if args.squash and args.stdout:
         print("--squash cannot combine with --stdout", file=sys.stderr)
         return 1

@@ -308,14 +308,17 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
         state["ring"] = ring
         parts.append(blob)
 
+    carried = trace.carry()
+
     def worker():
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    return
-                with trace.stage("serialize"):
-                    serialize_span(*item)
+            with trace.adopt(carried):
+                while True:
+                    item = q.get()
+                    if item is None:
+                        return
+                    with trace.stage("serialize"):
+                        serialize_span(*item)
         except BaseException as e:  # surfaced on the producer thread
             err.append(e)
             # keep draining so a blocked producer can always make
@@ -330,14 +333,16 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
     def on_block(lo, hi, matches):
         if err:
             raise err[0]
-        q.put((lo, hi, matches))
+        with trace.stage("serialize.wait"):
+            q.put((lo, hi, matches))
 
     try:
         find_matches_optimal(arr, maxback, on_block=on_block,
                              mb_size=1 << lgblock, device=device, dp=dp)
     finally:
-        q.put(None)
-        t.join()
+        with trace.stage("serialize.wait"):
+            q.put(None)
+            t.join()
     if err:
         raise err[0]
     return b"".join(parts)

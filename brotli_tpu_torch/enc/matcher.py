@@ -13,6 +13,7 @@ Commands are (insert_len, copy_len, distance) with distance == 0 meaning
 import numpy as np
 
 from .. import native
+from ..utils import trace
 
 MIN_MATCH = 4
 HASH_MUL = np.uint32(0x1E35A7BD)
@@ -255,7 +256,9 @@ def _tz_bytes(x: np.ndarray) -> np.ndarray:
 def _extend_capped(data, m, lens, dists, flags, cap, max_match):
     """Serially extend LZ matches that hit the parallel cap, dropping
     later matches they swallow. Dictionary matches (flags != 0) are
-    exact and never extended. Iterations ~ number of cap-hit matches."""
+    exact and never extended. Iterations ~ number of cap-hit matches.
+    Counts the cap-hit matches passed in (match.extend.caphits) and
+    those extended (match.extend.extensions; the rest were swallowed)."""
     n = len(data)
     caphit = (lens >= cap) & (flags == 0)
     if len(m) == 0 or not np.any(caphit):
@@ -264,6 +267,7 @@ def _extend_capped(data, m, lens, dists, flags, cap, max_match):
     i = 0
     nm = len(m)
     hit_idx = np.flatnonzero(caphit)
+    extended = 0
     while i < nm:
         hi = np.searchsorted(hit_idx, i)
         nxt_hit = int(hit_idx[hi]) if hi < len(hit_idx) else nm
@@ -277,8 +281,11 @@ def _extend_capped(data, m, lens, dists, flags, cap, max_match):
                               min(max_match, n - p) - cap)
         for o, v in zip(out, (p, ln, d, 0)):
             o.append(np.array([v]))
+        extended += 1
         # skip matches swallowed by the extension
         i = int(np.searchsorted(m, p + ln, side="left"))
+    trace.count("match.extend.caphits", len(hit_idx))
+    trace.count("match.extend.extensions", extended)
     return tuple(np.concatenate(o).astype(np.int64) for o in out)
 
 

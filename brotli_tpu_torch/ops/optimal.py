@@ -888,20 +888,22 @@ def upload_input(arr, n, device):
     segments are slices of it."""
     tail = n - (n // SEG_V3) * SEG_V3
     pad_to = (n // SEG_V3) * SEG_V3 + (_bucket_v3(tail) if tail else 0)
-    big = np.zeros(max(pad_to, BUCKETS_V3[0]), np.uint8)
-    big[:n] = arr[:n]
-    return torch.from_numpy(big).to(device)
+    with trace.stage("dp.upload"):
+        big = np.zeros(max(pad_to, BUCKETS_V3[0]), np.uint8)
+        big[:n] = arr[:n]
+        return torch.from_numpy(big).to(device)
 
 
 def device_tables(tables, device):
     """The v3 cost tables as device tensors: (bits_tab, ctx_tab, copyq,
     dist_sym_bits_q)."""
     bits_tab, copyq, distq, ctx_tab = tables[:4]
-    return (torch.from_numpy(bits_tab.astype(np.int32).reshape(-1)).to(
-                device),
-            torch.from_numpy(ctx_tab.astype(np.int32)).to(device),
-            torch.from_numpy(copyq[:W].astype(np.int32)).to(device),
-            torch.from_numpy(distq.astype(np.int32)).to(device))
+    with trace.stage("dp.upload"):
+        return (torch.from_numpy(bits_tab.astype(np.int32).reshape(-1)).to(
+                    device),
+                torch.from_numpy(ctx_tab.astype(np.int32)).to(device),
+                torch.from_numpy(copyq[:W].astype(np.int32)).to(device),
+                torch.from_numpy(distq.astype(np.int32)).to(device))
 
 
 def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device):
@@ -911,8 +913,9 @@ def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device):
     with trace.stage("dp.seg-prep"):
         npos, *rest = _prep_segment_v3(arr, seeds_list, dpos_g, dpay_g,
                                        lo, hi, b)
-    return (npos,) + tuple(
-        torch.from_numpy(a.astype(np.int64)).to(device) for a in rest)
+    with trace.stage("dp.upload"):
+        return (npos,) + tuple(
+            torch.from_numpy(a.astype(np.int64)).to(device) for a in rest)
 
 
 def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
@@ -994,13 +997,15 @@ def _stream_blocks(arr, handles, n, mb_size, max_distance, base,
     pm, pl, pd = z, z, z    # pending matches (coalesced)
     emitted = 0
     for lo, count, out, ev in handles:
-        mm, ml, md = _collect_segment(lo, count, out, ev)
+        with trace.stage("dp.fetch"):
+            mm, ml, md = _collect_segment(lo, count, out, ev)
         covered = min(lo + SEG, n)
         if len(mm):
-            pm, pl, pd, _ = bridge_matches(arr, *_coalesce(
-                np.concatenate([pm, mm]), np.concatenate([pl, ml]),
-                np.concatenate([pd, md]), np.zeros(len(pm) + len(mm),
-                                                   np.int64)))
+            with trace.stage("dp.collect"):
+                pm, pl, pd, _ = bridge_matches(arr, *_coalesce(
+                    np.concatenate([pm, mm]), np.concatenate([pl, ml]),
+                    np.concatenate([pd, md]), np.zeros(len(pm) + len(mm),
+                                                       np.int64)))
         while emitted < n:
             mb_hi = min(emitted + mb_size, n)
             if covered < mb_hi:
@@ -1043,36 +1048,37 @@ def _collect_v3(handles, dict_table, max_distance, base=0):
             for j, i in enumerate(idxs):
                 fetched[i] = host[j]
     all_m, all_l, all_d, all_f = [], [], [], []
-    for (lo, capm, packed, full, ev), hp in zip(handles, fetched):
-        cnt = int(hp[0, 0])
-        if cnt > capm:  # rare overflow: fetch the uncapped compaction
-            hostf = _to_u32([ev], [full[:, :cnt]])[0]
-            pos_c, pay_c = hostf[0], hostf[1]
-        elif cnt > capm // 2:  # middle tier: fetch the full packed
-            hostp = _to_u32([ev], [packed])[0]
-            pos_c, pay_c = hostp[0, 8:8 + cnt], hostp[1, 8:8 + cnt]
-        else:
-            pos_c, pay_c = hp[0, 8:8 + cnt], hp[1, 8:8 + cnt]
-        if cnt == 0:
-            continue
-        mm = pos_c.astype(np.int64) + lo
-        ml = (pay_c >> 25).astype(np.int64)
-        md = (pay_c & np.uint32((1 << 25) - 1)).astype(np.int64)
-        mf = np.zeros(len(mm), np.int64)
-        isd = md > np.minimum(mm + base, max_distance)
-        if isd.any() and len(dpos_g):
-            di = np.searchsorted(dpos_g, mm[isd])
-            di = np.minimum(di, len(dpos_g) - 1)
-            found = dpos_g[di] == mm[isd]
-            w = np.where(found, 2000 + dwlen_g[di], 0)
-            mf[np.flatnonzero(isd)] = w
-        # a dict-flagged match whose probe lookup failed is
-        # unserializable -- drop it (its span falls back to literals)
-        keep = ~isd | (mf >= 2000)
-        all_m.append(mm[keep])
-        all_l.append(ml[keep])
-        all_d.append(md[keep])
-        all_f.append(mf[keep])
+    with trace.stage("dp.collect"):
+        for (lo, capm, packed, full, ev), hp in zip(handles, fetched):
+            cnt = int(hp[0, 0])
+            if cnt > capm:  # rare overflow: fetch the uncapped compaction
+                hostf = _to_u32([ev], [full[:, :cnt]])[0]
+                pos_c, pay_c = hostf[0], hostf[1]
+            elif cnt > capm // 2:  # middle tier: fetch the full packed
+                hostp = _to_u32([ev], [packed])[0]
+                pos_c, pay_c = hostp[0, 8:8 + cnt], hostp[1, 8:8 + cnt]
+            else:
+                pos_c, pay_c = hp[0, 8:8 + cnt], hp[1, 8:8 + cnt]
+            if cnt == 0:
+                continue
+            mm = pos_c.astype(np.int64) + lo
+            ml = (pay_c >> 25).astype(np.int64)
+            md = (pay_c & np.uint32((1 << 25) - 1)).astype(np.int64)
+            mf = np.zeros(len(mm), np.int64)
+            isd = md > np.minimum(mm + base, max_distance)
+            if isd.any() and len(dpos_g):
+                di = np.searchsorted(dpos_g, mm[isd])
+                di = np.minimum(di, len(dpos_g) - 1)
+                found = dpos_g[di] == mm[isd]
+                w = np.where(found, 2000 + dwlen_g[di], 0)
+                mf[np.flatnonzero(isd)] = w
+            # a dict-flagged match whose probe lookup failed is
+            # unserializable -- drop it (its span falls back to literals)
+            keep = ~isd | (mf >= 2000)
+            all_m.append(mm[keep])
+            all_l.append(ml[keep])
+            all_d.append(md[keep])
+            all_f.append(mf[keep])
     return all_m, all_l, all_d, all_f
 
 
@@ -1273,10 +1279,9 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                                    cfg=cfg)
         dict1 = _dict_probe_global(arr[:SEG_V3], [seed1], base,
                                    max_distance)
-        with trace.stage("dp.device"):
-            handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance,
-                                       tables1, [seed1], dev_big, cfg,
-                                       base, dict_g=dict1)
+        handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance, tables1,
+                                   [seed1], dev_big, cfg, base,
+                                   dict_g=dict1)
     with trace.stage("dp.seed"):
         seed = _seed_parse(arr, max_distance, base, dev, cfg.seed_q)
     m = lens = dists = flags = None
@@ -1285,17 +1290,17 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
         with trace.stage("dp.cost-tables"):
             tables = _cost_tables(arr, prev, lit_table=v3, cfg=cfg)
         seeds_list = [seed] if it == 0 else [seed, prev]
-        with trace.stage("dp.device"):
-            if v3:
-                early = handles0 is not None and it == 0
-                handles, dict_table = _dispatch_v3(
-                    arr, n, max_distance, tables, seeds_list, dev_big,
-                    cfg, base, lo_start=SEG_V3 if early else 0)
-                if early:
-                    # merge segment 1 (dispatched early) + its dict
-                    # probe's edges (flag recovery at collect needs
-                    # every position either probe selected)
-                    handles = handles0 + handles
+        if v3:
+            early = handles0 is not None and it == 0
+            handles, dict_table = _dispatch_v3(
+                arr, n, max_distance, tables, seeds_list, dev_big,
+                cfg, base, lo_start=SEG_V3 if early else 0)
+            if early:
+                # merge segment 1 (dispatched early) + its dict
+                # probe's edges (flag recovery at collect needs
+                # every position either probe selected)
+                handles = handles0 + handles
+                with trace.stage("dp.collect"):
                     dp0, _, dw0 = dict1
                     dpos_g, dwlen_g = dict_table
                     mp = np.concatenate([dp0.astype(np.int64), dpos_g])
@@ -1306,33 +1311,33 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                         keep = np.concatenate([[True], np.diff(mp) != 0])
                         mp, mw = mp[keep], mw[keep]
                     dict_table = (mp, mw)
-                if (on_block is not None and it == iterations - 1 and
-                        SEG_V3 % mb_size == 0):
-                    # stream: emit the first half's spans while the card
-                    # computes the rest. Groups cover whole metablocks
-                    # only when mb_size divides SEG_V3; otherwise fall
-                    # through to the full collect + one _emit_spans(0, n)
-                    _stream_v3(arr, handles, dict_table, n, mb_size,
-                               max_distance, base, on_block)
-                    return None
-                all_m, all_l, all_d, all_f = _collect_v3(
-                    handles, dict_table, max_distance, base)
-            else:
-                handles = _dispatch_v1(arr, n, max_distance, tables,
-                                       seeds_list, cfg, dev)
-                if on_block is not None:
-                    _stream_blocks(arr, handles, n, mb_size, max_distance,
-                                   base, on_block)
-                    return None
-                all_m, all_l, all_d, all_f = [], [], [], []
-                with trace.stage("dp.fetch"):
-                    for h in handles:
-                        mm, ml, md = _collect_segment(*h)
-                        if len(mm):
-                            all_m.append(mm)
-                            all_l.append(ml)
-                            all_d.append(md)
-                            all_f.append(np.zeros(len(mm), np.int64))
+            if (on_block is not None and it == iterations - 1 and
+                    SEG_V3 % mb_size == 0):
+                # stream: emit the first half's spans while the card
+                # computes the rest. Groups cover whole metablocks
+                # only when mb_size divides SEG_V3; otherwise fall
+                # through to the full collect + one _emit_spans(0, n)
+                _stream_v3(arr, handles, dict_table, n, mb_size,
+                           max_distance, base, on_block)
+                return None
+            all_m, all_l, all_d, all_f = _collect_v3(
+                handles, dict_table, max_distance, base)
+        else:
+            handles = _dispatch_v1(arr, n, max_distance, tables,
+                                   seeds_list, cfg, dev)
+            if on_block is not None:
+                _stream_blocks(arr, handles, n, mb_size, max_distance,
+                               base, on_block)
+                return None
+            all_m, all_l, all_d, all_f = [], [], [], []
+            with trace.stage("dp.fetch"):
+                for h in handles:
+                    mm, ml, md = _collect_segment(*h)
+                    if len(mm):
+                        all_m.append(mm)
+                        all_l.append(ml)
+                        all_d.append(md)
+                        all_f.append(np.zeros(len(mm), np.int64))
         if not all_m:
             z = np.zeros(0, np.int64)
             if on_block is not None:
@@ -1340,9 +1345,10 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                             base, on_block)
                 return None
             return z, z, z, z
-        m, lens, dists, flags = bridge_matches(arr, *_coalesce(
-            np.concatenate(all_m), np.concatenate(all_l),
-            np.concatenate(all_d), np.concatenate(all_f)))
+        with trace.stage("dp.collect"):
+            m, lens, dists, flags = bridge_matches(arr, *_coalesce(
+                np.concatenate(all_m), np.concatenate(all_l),
+                np.concatenate(all_d), np.concatenate(all_f)))
     if on_block is not None:
         _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
                     base, on_block)
@@ -1390,17 +1396,20 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
         raise ValueError(f"{n_shards} shards, {len(devices)} devices")
     devs = [resolve(d) for d in devices]
     seg, buckets = (SEG_V3, BUCKETS_V3) if seg is None else (seg, [seg])
+    carried = trace.carry()  # the pool's threads work for this request
 
     def prep_shard(si):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
         h = min(int(max_distance), lo, seg)
         buf = np.ascontiguousarray(arr[lo - h:hi])
         base = lo - h
-        with trace.stage("dp.seed"):
-            seed = _seed_parse(buf, max_distance, base, devs[si], cfg.seed_q)
-        with trace.stage("dp.cost-tables"):
-            tables = _cost_tables(buf, seed, lit_table=True, cfg=cfg)
-        dict_g = _dict_probe_global(buf, [seed], base, max_distance)
+        with trace.adopt(carried):
+            with trace.stage("dp.seed"):
+                seed = _seed_parse(buf, max_distance, base, devs[si],
+                                   cfg.seed_q)
+            with trace.stage("dp.cost-tables"):
+                tables = _cost_tables(buf, seed, lit_table=True, cfg=cfg)
+            dict_g = _dict_probe_global(buf, [seed], base, max_distance)
         return dict(lo=lo, hi=hi, h=h, buf=buf, base=base, seed=seed,
                     tables=tables, dict_g=dict_g)
 
@@ -1447,9 +1456,10 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
             z = np.zeros(0, np.int64)
             out.append((z, z, z, z))
             continue
-        m, lens, dists, flags = bridge_matches(s["buf"], *_coalesce(
-            np.concatenate(all_m), np.concatenate(all_l),
-            np.concatenate(all_d), np.concatenate(all_f)))
+        with trace.stage("dp.collect"):
+            m, lens, dists, flags = bridge_matches(s["buf"], *_coalesce(
+                np.concatenate(all_m), np.concatenate(all_l),
+                np.concatenate(all_d), np.concatenate(all_f)))
         with trace.stage("dp.dict-post"):
             m, lens, dists, flags = add_dictionary_matches(
                 s["buf"], m, lens, dists, flags, max_distance, s["base"])
@@ -1476,9 +1486,10 @@ def _stream_v3(arr, handles, dict_table, n, mb_size, max_distance,
         am, al, ad, af = _collect_v3(group, dict_table, max_distance,
                                      base)
         if am:
-            gm, gl, gd, gf = bridge_matches(arr, *_coalesce(
-                np.concatenate(am), np.concatenate(al),
-                np.concatenate(ad), np.concatenate(af)))
+            with trace.stage("dp.collect"):
+                gm, gl, gd, gf = bridge_matches(arr, *_coalesce(
+                    np.concatenate(am), np.concatenate(al),
+                    np.concatenate(ad), np.concatenate(af)))
         else:
             gm = gl = gd = gf = z
         _emit_spans(arr, gm, gl, gd, gf, n, mb_size, max_distance,

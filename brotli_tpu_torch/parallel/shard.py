@@ -86,24 +86,29 @@ def compress_sharded(data: bytes, quality: int = 5, lgwin: int = 22,
         raise ValueError(f"unknown gather {gather!r}")
     if serializer not in ("native", "device", "python"):
         raise ValueError(f"unknown serializer {serializer!r}")
-    raw = bytes(data)
-    n = len(raw)
-    if use_device:
-        dev = resolve(device)
-        if n_shards is None:
-            n_shards = max(torch.cuda.device_count(), 1) \
-                if dev.type == "cuda" else 1
-        mesh = _mesh_devices(dev, n_shards)
-    else:
-        dev = resolve(device) if serializer == "device" else None
-        n_shards = 4 if n_shards is None else n_shards
-        mesh = None
-    if n == 0 or n < n_shards * (1 << 16):
-        return encode(raw, quality=quality, lgwin=lgwin, device=dev, dp=dp,
-                      backend="auto" if use_device else "numpy")
-    return _compress_sharded(raw, quality, lgwin, n_shards, dev, mesh,
-                             gather=gather, serializer=serializer, dp=dp,
-                             use_device=use_device)
+    with trace.request("compress_sharded", len(data)) as req:
+        raw = bytes(data)
+        n = len(raw)
+        if use_device:
+            dev = resolve(device)
+            if n_shards is None:
+                n_shards = max(torch.cuda.device_count(), 1) \
+                    if dev.type == "cuda" else 1
+            mesh = _mesh_devices(dev, n_shards)
+        else:
+            dev = resolve(device) if serializer == "device" else None
+            n_shards = 4 if n_shards is None else n_shards
+            mesh = None
+        if n == 0 or n < n_shards * (1 << 16):
+            out = encode(raw, quality=quality, lgwin=lgwin, device=dev,
+                         dp=dp, backend="auto" if use_device else "numpy")
+        else:
+            out = _compress_sharded(raw, quality, lgwin, n_shards, dev,
+                                    mesh, gather=gather,
+                                    serializer=serializer, dp=dp,
+                                    use_device=use_device)
+        req.done(len(out))
+    return out
 
 
 def _mesh_devices(device, n_shards):
@@ -161,16 +166,20 @@ def _compress_sharded(raw: bytes, quality, lgwin, n_shards, device, mesh,
 
     # Stage 2: serialization per shard, each byte-aligned. The native
     # call releases the GIL, so shards serialize natively in parallel;
-    # on the devices they go one after another
+    # on the devices they go one after another. The pool's threads work
+    # for the caller's request
+    carried = trace.carry()
+
     def serialize(si):
         lo, hi = int(bounds[si]), int(bounds[si + 1])
         is_last = si == n_shards - 1
         if serializer == "python":
             # _write_blocks times each metablock under "serialize"
-            return serialize_shard_python(
-                arr, lo, hi, shard_matches[si], quality, lgwin,
-                entry_rings[si], si == 0, is_last)
-        with trace.stage("serialize"):
+            with trace.adopt(carried):
+                return serialize_shard_python(
+                    arr, lo, hi, shard_matches[si], quality, lgwin,
+                    entry_rings[si], si == 0, is_last)
+        with trace.adopt(carried), trace.stage("serialize"):
             if serializer == "device":
                 out = serialize_shard_device(
                     arr, lo, hi, shard_matches[si], entry_rings[si], lgwin,

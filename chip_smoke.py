@@ -777,6 +777,14 @@ def max_abs_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def stage_table(report):
+    """A trace.report() as lines, the longest stage first."""
+    rows = sorted(report.items(), key=lambda kv: -kv[1][1])
+    width = max((len(k) for k, _ in rows), default=4)
+    return "\n".join(f"{k.ljust(width)}  {c:6d} calls  {s * 1000:9.1f} ms"
+                     for k, (c, s) in rows)
+
+
 def timed(fn):
     """(result, seconds) of fn() on the host clock, between two
     synchronizes."""
@@ -812,7 +820,7 @@ def three_runs(fn, trace, kernels, label, corpus, decompress, card,
     trace.enable(False)
     print(f"    first run {cold:.3f} s, traced run {traced:.3f} s; "
           f"stages of the traced run:")
-    print(trace.format_report(), flush=True)
+    print(stage_table(trace.report()), flush=True)
     if not first == out == again:
         sys.exit(f"chip_smoke: {label} runs on the same input differ")
     return launches, out
@@ -1529,7 +1537,7 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
               flush=True)
         if label == "default":
             print("    stages of this (traced) run:")
-            print(trace.format_report(), flush=True)
+            print(stage_table(trace.report()), flush=True)
         if bt.decompress(out) != corpus:
             sys.exit(f"chip_smoke: the q11 mesh ({label}) stream does not "
                      f"decode")

@@ -502,12 +502,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 "edge_rows": 0, "edge_slots": 0}
 
 
-def test_profile_busy_time_is_the_union():
-    from brotli_tpu_torch.tools.profile_q11 import _busy_us
-    assert _busy_us([]) == 0
-    assert _busy_us([(10, 12), (0, 5), (3, 8), (11, 11.5), (8, 9)]) == 11
-
-
 def test_import_isolation():
     """(h) importing the port, one CPU compress, one CPU
     compress_sharded at q5 with each serializer, one CPU device decode,
