@@ -254,39 +254,19 @@ def _tz_bytes(x: np.ndarray) -> np.ndarray:
 
 
 def _extend_capped(data, m, lens, dists, flags, cap, max_match):
-    """Serially extend LZ matches that hit the parallel cap, dropping
-    later matches they swallow. Dictionary matches (flags != 0) are
-    exact and never extended. Iterations ~ number of cap-hit matches.
+    """Extend LZ matches that hit the parallel cap, dropping later
+    matches they swallow, in one native pass (native.extend_capped).
+    Dictionary matches (flags != 0) are exact and never extended.
     Counts the cap-hit matches passed in (match.extend.caphits) and
     those extended (match.extend.extensions; the rest were swallowed)."""
-    n = len(data)
-    caphit = (lens >= cap) & (flags == 0)
-    if len(m) == 0 or not np.any(caphit):
+    nhit = int(np.count_nonzero((lens >= cap) & (flags == 0)))
+    if len(m) == 0 or nhit == 0:
         return m, lens, dists, flags
-    out = ([], [], [], [])
-    i = 0
-    nm = len(m)
-    hit_idx = np.flatnonzero(caphit)
-    extended = 0
-    while i < nm:
-        hi = np.searchsorted(hit_idx, i)
-        nxt_hit = int(hit_idx[hi]) if hi < len(hit_idx) else nm
-        if nxt_hit > i:  # bulk-copy the run of uncapped matches
-            for o, a in zip(out, (m, lens, dists, flags)):
-                o.append(a[i:nxt_hit])
-            i = nxt_hit
-            continue
-        p, d = int(m[i]), int(dists[i])
-        ln = cap + _match_len(data, p - d + cap, p + cap,
-                              min(max_match, n - p) - cap)
-        for o, v in zip(out, (p, ln, d, 0)):
-            o.append(np.array([v]))
-        extended += 1
-        # skip matches swallowed by the extension
-        i = int(np.searchsorted(m, p + ln, side="left"))
-    trace.count("match.extend.caphits", len(hit_idx))
+    *out, extended = native.extend_capped(data, m, lens, dists, flags, cap,
+                                          max_match)
+    trace.count("match.extend.caphits", nhit)
     trace.count("match.extend.extensions", extended)
-    return tuple(np.concatenate(o).astype(np.int64) for o in out)
+    return tuple(out)
 
 
 def add_dictionary_matches(data, m, lens, dists, flags, max_distance,

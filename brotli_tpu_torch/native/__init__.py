@@ -3,7 +3,8 @@ decoders behind the public API, and what the port's device pipelines
 call (the seed parse, the static-dictionary probe and post-pass, the
 region serializer, package-merge code lengths, the device decoder's
 symbol parse). Copy of the ctypes bindings of brotli_tpu.native over
-verbatim copies of its C sources.
+verbatim copies of its C sources, plus the port's own cap-hit extension
+(btpu_extend.c).
 
 The library is compiled with the system compiler into `_build/` at
 first use; it is never committed.
@@ -23,7 +24,8 @@ from ..utils import filelock
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _LIB = _DIR / "_build" / "libbtpu.so"
-_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_enc.c")
+_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_enc.c",
+         _DIR / "btpu_extend.c")
 
 _lib = None
 _lock = threading.Lock()
@@ -86,6 +88,13 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_size_t,
                 ctypes.POINTER(ctypes.c_size_t)]
             lib.btpu_dict_post.restype = ctypes.c_int
+            lib.btpu_extend_capped.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_extend_capped.restype = ctypes.c_int64
             lib.btpu_dict_probe_all.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
                 ctypes.c_size_t, ctypes.c_char_p, ctypes.c_void_p,
@@ -458,6 +467,31 @@ def dict_post(data: bytes, mpos, mlen, max_distance: int,
     k = cnt.value
     return (op[:k].astype(np.int64), ol[:k].astype(np.int64),
             od[:k].astype(np.int64), of[:k].astype(np.int64))
+
+
+def extend_capped(data, m, lens, dists, flags, cap: int, max_match: int):
+    """Cap-hit extension in one native pass (btpu_extend.c): matches
+    with lens >= cap and flags == 0 extended as far as the input
+    repeats, up to max_match, and the later matches they swallow
+    dropped. `data`: uint8 bytes, passed without a copy when contiguous.
+    Returns the (pos, len, dist, flag) int64 arrays and how many cap
+    hits were extended. Raises ValueError for arrays of unequal length
+    or a cap hit whose source lies outside `data`."""
+    buf = np.ascontiguousarray(data, np.uint8)
+    ins = [np.ascontiguousarray(a, np.int64) for a in (m, lens, dists, flags)]
+    nm = len(ins[0])
+    if any(len(a) != nm for a in ins):
+        raise ValueError("extend_capped: match arrays of unequal length")
+    outs = [np.empty(nm, np.int64) for _ in range(4)]
+    cnt = ctypes.c_size_t()
+    extended = get_lib().btpu_extend_capped(
+        _ptr(buf), len(buf), *map(_ptr, ins), nm, cap, max_match,
+        *map(_ptr, outs), ctypes.byref(cnt))
+    if extended < 0:
+        raise ValueError("extend_capped: a cap hit's source lies outside "
+                         "the data")
+    k = cnt.value
+    return (*(o[:k] for o in outs), extended)
 
 
 def dict_probe_all(data: bytes, mpos, mlen, base: int = 0,

@@ -446,6 +446,147 @@ def test_extend_capped_matches(corpus):
         assert PEM._match_len(arr, a, b_, c) == JM._match_len(arr, a, b_, c)
 
 
+# The q5 cell's traffic parameters (benchmark/traffic/logs16m.json as of
+# the cell's first release), pinned here so that a later change to the
+# traffic file leaves this input as it is.
+_LOGS16M = dict(
+    site_seed=0, host="www.example.com", size_mu=9.357, size_sigma=1.318,
+    tail_k=133000, tail_alpha=1.1, file_zipf=1.0, embedded_k=1.0,
+    embedded_alpha=2.43, active_shape=1.46, active_scale=0.382,
+    inactive_k=1.0, inactive_alpha=1.5, addresses=20000, client_zipf=1.2,
+    status_shares=[0.88, 0.08, 0.02, 0.015, 0.005], pages=500,
+    objects=1500, agents=400, pages_per_session=5, session_rate=2.0,
+    external_shares=[0.4, 0.3, 0.05, 0.05, 0.05, 0.05, 0.04, 0.03, 0.03],
+    method_shares=[0.97, 0.02, 0.01], protocol_shares=[0.6, 0.38, 0.02],
+    user_share=0.02)
+
+
+@pytest.fixture(scope="module")
+def access_log_parse():
+    """The port's device parse (`match_block`, on the CPU) of 1 MiB of
+    access-log lines from the q5 cell's generator
+    (`benchmark/gen/access_log.py`, seed 7, at `_LOGS16M`), before
+    cap-hit extension: (data, pos, len, dist, flag) with every flag 0.
+    The generator's code is the benchmark's; its parameters are pinned
+    above."""
+    from benchmark import core
+    gen = core.load_module("gen", "access_log")
+    data = np.frombuffer(gen.document(1 << 20, 7, **_LOGS16M), np.uint8)
+    padded = np.zeros(PM._bucket(len(data)), np.uint8)
+    padded[:len(data)] = data
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        count, packed, _ = PM.match_block(
+            torch.from_numpy(padded), len(data) - 3, MAXD, 4, 0)
+    finally:
+        torch.set_num_threads(n)
+    cnt = int(count)
+    pay = packed[1, :cnt].numpy()
+    return (data, packed[0, :cnt].numpy().astype(np.int64),
+            (pay >> 25).astype(np.int64),
+            (pay & PM.MASK25).astype(np.int64), np.zeros(cnt, np.int64))
+
+
+def _rand(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+
+
+def _extend_case(name, request):
+    """(data, pos, len, dist, flag, max_match) of one case of
+    `test_extend_capped_is_the_reference_loop`."""
+    def arrays(*cols):
+        return tuple(np.array(c, np.int64) for c in zip(*cols))
+
+    if name == "access_log":
+        data, m, lens, dists, flags = request.getfixturevalue(
+            "access_log_parse")
+        return data, m, lens, dists, flags, 1 << 24
+    if name in ("run_d1", "int32"):
+        # a 5,000-byte run of one byte, copied at distance 1
+        data = np.concatenate([_rand(1000, 1), np.full(5000, 7, np.uint8),
+                               _rand(1000, 2)])
+        cols = arrays((500, 6, 100, 0), (1001, 16, 1, 0), (1100, 16, 1, 0),
+                      (2000, 8, 50, 0), (5990, 5, 1, 0), (6010, 16, 300, 0),
+                      (6500, 4, 9, 0))
+        if name == "int32":
+            cols = tuple(c.astype(np.int32) for c in cols)
+        return (data, *cols, 1 << 24)
+    if name == "run_over_1mib":
+        # past the reference's largest stride of 1 MiB
+        data = np.concatenate([_rand(100, 3),
+                               np.zeros((1 << 20) + 300_000, np.uint8),
+                               _rand(100, 4)])
+        n = len(data)
+        return (data, *arrays((101, 16, 1, 0), (5000, 16, 1, 0),
+                              (600_000, 10, 7, 0), (1_200_000, 16, 1, 0),
+                              (n - 50, 16, 1000, 0)), 1 << 24)
+    x = _rand(3000, 5)
+    data = np.concatenate([x, x])
+    if name == "max_match_below_cap":
+        # room = 8 - 16 < 0: the reference's length is cap + room
+        return (data, *arrays((2000, 16, 2000, 0), (2004, 16, 2000, 0),
+                              (2010, 16, 2000, 0), (2020, 5, 2000, 0),
+                              (2030, 17, 2000, 0)), 8)
+    if name == "ends_at_last_byte":
+        return (data, *arrays((1000, 6, 500, 0), (3000, 16, 3000, 0),
+                              (3500, 16, 3000, 0), (5990, 6, 7, 0)),
+                1 << 24)
+    if name == "zero_room_at_end":
+        return (data, *arrays((1000, 6, 500, 0), (3000, 16, 2999, 0),
+                              (5984, 16, 3000, 0)), 1 << 24)
+    if name == "dict_at_cap":
+        return (data, *arrays((100, 20, 9000, 2010), (500, 16, 9000, 2016),
+                              (3000, 16, 3000, 0), (3100, 18, 9000, 2018),
+                              (5000, 5, 40, 0)), 1 << 24)
+    if name == "no_caphit":
+        return (data, *arrays((100, 20, 9000, 2010), (3000, 15, 3000, 0),
+                              (4000, 4, 3000, 0)), 1 << 24)
+    assert name == "empty"
+    z = np.zeros(0, np.int64)
+    return data, z, z, z, z, 1 << 24
+
+
+@pytest.mark.parametrize("name", [
+    "access_log", "run_d1", "run_over_1mib", "max_match_below_cap",
+    "ends_at_last_byte", "zero_room_at_end", "dict_at_cap", "no_caphit",
+    "empty", "int32"])
+def test_extend_capped_is_the_reference_loop(name, request):
+    """The port's native cap-hit extension gives the JAX package's
+    Python loop's four arrays, dtypes included; with no cap hit or no
+    match it hands back the arrays it was given."""
+    data, *cols, max_match = _extend_case(name, request)
+    m, lens, _, flags = cols
+    args = (data, *cols, PM.CAP, max_match)
+    port = PEM._extend_capped(*args)
+    ref = JM._extend_capped(*args)
+    _eq_all(port, ref)
+    assert [a.dtype for a in port] == [a.dtype for a in ref]
+    caphits = np.count_nonzero((lens >= PM.CAP) & (flags == 0))
+    if caphits == 0:
+        assert all(a is b for a, b in zip(port, cols))
+    else:
+        assert all(a.dtype == np.int64 for a in port)
+    if name == "access_log":  # the mechanism at the q5 cell's rate
+        assert caphits / (len(data) / (1 << 20)) >= 40_000
+
+
+@pytest.mark.parametrize("d", [1000 + PM.CAP + 1, 1 << 22])
+def test_extend_capped_refuses_source_before_data(d):
+    """A cap hit at p whose distance passes p + cap would compare bytes
+    before the buffer. The reference loop reads them through numpy's
+    negative indices; no valid parse has one, and the port refuses it.
+    A distance of p + cap still compares from the first byte."""
+    data = _rand(4000, 6)
+    m, lens, flags = (np.array([v], np.int64) for v in (1000, PM.CAP, 0))
+    with pytest.raises(ValueError, match="outside"):
+        PEM._extend_capped(data, m, lens, np.array([d], np.int64), flags,
+                           PM.CAP, 1 << 24)
+    edge = np.array([1000 + PM.CAP], np.int64)
+    assert PEM._extend_capped(data, m, lens, edge, flags, PM.CAP,
+                              1 << 24)[1][0] >= PM.CAP
+
+
 @pytest.mark.parametrize("ring", [None, [17, 4, 11, 16]])
 def test_ring_after_matches(ring):
     rng = np.random.default_rng(7)

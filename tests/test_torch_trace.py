@@ -13,12 +13,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from brotli_tpu.enc import matcher as JM
 from brotli_tpu_torch import decompress
 from brotli_tpu_torch.enc.matcher import _extend_capped
 from brotli_tpu_torch.ops import matcher as M
 from brotli_tpu_torch.ops import optimal as O
 from brotli_tpu_torch.parallel.shard import compress_sharded
 from brotli_tpu_torch.utils import trace
+from test_torch_matcher import access_log_parse  # noqa: F401
 
 MS = 1_000_000  # ns
 
@@ -173,7 +175,7 @@ def test_threads_lose_no_span_or_count():
             assert sp[s.parent].request == s.request
 
 
-def test_extend_capped_counts_cap_hits_and_extensions():
+def test_extend_capped_counts_cap_hits_and_extensions(access_log_parse):
     rng = np.random.default_rng(11)
     x = rng.integers(0, 256, 64, dtype=np.uint8)
     y = rng.integers(0, 256, 64, dtype=np.uint8)
@@ -197,6 +199,16 @@ def test_extend_capped_counts_cap_hits_and_extensions():
                    1 << 24)
     assert trace.counters() == {"match.extend.caphits": 5,
                                 "match.extend.extensions": 3}
+    # a real parse: the cap hits the reference loop takes in, and the
+    # extensions it emits (its outputs at the cap or longer, flag 0)
+    data, m, lens, dists, flags = access_log_parse
+    ref = JM._extend_capped(data, m, lens, dists, flags, 16, 1 << 24)
+    trace.reset()
+    _extend_capped(data, m, lens, dists, flags, 16, 1 << 24)
+    assert trace.counters() == {
+        "match.extend.caphits": int(np.count_nonzero(lens >= 16)),
+        "match.extend.extensions": int(np.count_nonzero(
+            (ref[1] >= 16) & (ref[3] == 0)))}
 
 
 def test_spans_lie_on_the_profilers_clock():
