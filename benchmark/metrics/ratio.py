@@ -1,5 +1,7 @@
 """Compression ratio: all input bytes of the window over all the
-stream bytes its requests returned."""
+stream bytes its requests returned. Where the traffic gives a request a
+dictionary, its bytes are counted on neither side: the client already
+holds it."""
 
 
 def read(w):

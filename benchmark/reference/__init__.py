@@ -13,10 +13,11 @@ def window_bits(stream: bytes) -> int:
     return _read_window_bits(BitReader(bytes(stream[:8])), True)[0]
 
 
-def decompress(stream: bytes) -> bytes:
-    """The bytes a stream decodes to; raises FormatError on an invalid
+def decompress(stream: bytes, dictionary: bytes = None) -> bytes:
+    """The bytes a stream decodes to, with `dictionary`, where given, as
+    its raw (compound) LZ77 dictionary; raises FormatError on an invalid
     stream."""
-    return Decoder().decompress(bytes(stream))
+    return Decoder(dictionary=dictionary).decompress(bytes(stream))
 
 
 __all__ = ["FormatError", "decompress", "window_bits"]

@@ -6,21 +6,29 @@ from the root of a checkout, on a machine with as many CUDA devices as
 the cell asks for. The cell (BENCHMARK.json's `workloads`) names a
 configuration (configs/<name>.json: the entry point of brotli_tpu_torch
 and its arguments) and a traffic mix (traffic/<name>.json: a generator
-in gen/, its parameters and the number of clients). The run:
+in gen/, its parameters and the number of clients; a traffic whose
+documents each carry a raw dictionary names the entry's keyword for it
+under "dictionary", and its generator has `dictionaries`). The run:
 
-  1. makes the pool of documents from --seed and loads the program;
+  1. makes the pool of documents (and their dictionaries) from --seed
+     and loads the program;
   2. warms up with one request of the first document's first
-     `warmup_bytes`, which ends the set-up (on a checkout's first run the
-     program builds its kernels and native library there, into its fixed
-     directories brotli_tpu_torch/_build and native/_build);
+     `warmup_bytes` (with the first document's dictionary), which ends
+     the set-up (on a checkout's first run the program builds its
+     kernels and native library there, into its fixed directories
+     brotli_tpu_torch/_build and native/_build);
   3. runs a closed loop for --seconds: each client sends its next
-     document when the last one has come back; the window ends when
-     the last request started inside --seconds completes;
+     document, with its dictionary, when the last one has come back; the
+     window ends when the last request started inside --seconds
+     completes;
   4. with --trace 1, runs the window under torch.profiler with the
-     program's trace stages on, and reads the per-layer metrics
-     (metrics/<name>.py) from them; with --trace 0, the end-to-end
+     program's tracing on, and reads the per-layer metrics
+     (metrics/<name>.py) from its spans, counters and stage sums and the
+     device trace; the idle gaps of the breakdown are named by the
+     program's spans of every thread; with --trace 0, the end-to-end
      metrics;
-  5. judges every stream with the plain reference (check.py), fails if
+  5. judges every stream with the plain reference (check.py), decoding
+     it with its request's dictionary where there is one; fails if
      jax, jaxlib, flax or the JAX package brotli_tpu was loaded, and
      prints one JSON line: the metrics that found nothing to read and
      any roofline kernel whose launches were not the count expected are
@@ -45,9 +53,11 @@ import threading  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 from benchmark import check, core, faults  # noqa: E402
+from benchmark import spans as S  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "brotli_tpu")
 TOP = 10  # entries of each breakdown list
+WINDOW = "bench.window"  # the harness's profiler span over the window
 
 
 def process_age() -> float:
@@ -75,11 +85,15 @@ def entry_point(config: dict):
     return getattr(importlib.import_module(mod), name)
 
 
-def closed_loop(fn, kwargs, docs, seconds, clients, sync):
+def closed_loop(fn, kwargs, docs, seconds, clients, sync, per_doc=None):
     """Each of `clients` threads sends documents in turn (the k-th
     request takes document k mod pool) until `seconds` have passed, one
-    in flight at a time. Returns ([(document, stream or None, error,
-    seconds)] in request order, the window's seconds)."""
+    in flight at a time, with `kwargs` and, where `per_doc` is given,
+    its document's own keyword arguments (per_doc[document]). Returns
+    ([(document, stream or None, error, seconds)] in request order, the
+    window's seconds)."""
+    calls = ([kwargs] * len(docs) if per_doc is None else
+             [{**kwargs, **own} for own in per_doc])
     lock = threading.Lock()
     issued = []
     records = {}
@@ -96,7 +110,7 @@ def closed_loop(fn, kwargs, docs, seconds, clients, sync):
             di = k % len(docs)
             t = time.perf_counter()
             try:
-                out, err = fn(docs[di], **kwargs), None
+                out, err = fn(docs[di], **calls[di]), None
                 sync()
             except Exception as e:  # a failed request is judged, not fatal
                 out, err = None, f"{type(e).__name__}: {e}"
@@ -116,14 +130,18 @@ def closed_loop(fn, kwargs, docs, seconds, clients, sync):
 
 @contextlib.contextmanager
 def traced(cuda: bool):
-    """The program's trace stages on, each also a torch.profiler span,
-    and torch.profiler over the block; yields a namespace whose `prof`
-    and `stages` are set when the block ends."""
+    """The program's tracing on, from a reset, each of its stages also a
+    torch.profiler span, and torch.profiler over the block; yields a
+    namespace whose `prof`, `stages` (the program's sums by stage,
+    `report()`) and `spans` (the names of the harness's profiler spans)
+    are set when the block ends. The program's spans and counters of
+    every thread stay in its trace after the block (benchmark/spans.py
+    reads them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from brotli_tpu_torch.utils import trace as T
-    got = SimpleNamespace(prof=None, stages={}, spans={"bench.window"})
+    got = SimpleNamespace(prof=None, stages={}, spans={WINDOW})
     plain = T.stage
 
     @contextlib.contextmanager
@@ -138,7 +156,7 @@ def traced(cuda: bool):
     T.stage = spanned
     try:
         with profile(activities=acts) as prof:
-            with record_function("bench.window"):
+            with record_function(WINDOW):
                 yield got
             if cuda:
                 torch.cuda.synchronize()
@@ -150,14 +168,13 @@ def traced(cuda: bool):
 
 
 def read_trace(prof, spans):
-    """(device ops [(name, start s, end s)], the program's trace stages
-    [(name, start s, end s)], the window's (start s, end s)) from a
-    profile's raw events (building the profiler's event tree takes tens
-    of seconds on a window of torch ops); `spans` are the names of the
-    harness's own profiler spans, whose copies on the device's timeline
-    are no device operations."""
+    """(device ops [(name, start s, end s)], the window's (start s,
+    end s)) from a profile's raw events (building the profiler's event
+    tree takes tens of seconds on a window of torch ops); `spans` are
+    the names of the harness's own profiler spans, whose copies on the
+    device's timeline are no device operations."""
     from torch.autograd import DeviceType
-    dev, host, win = [], [], None
+    dev, win = [], None
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         a = e.start_ns() / 1e9
@@ -165,17 +182,15 @@ def read_trace(prof, spans):
         if e.device_type() == DeviceType.CUDA:
             if name not in spans and not e.is_user_annotation():
                 dev.append((core.kernel_name(name), a, b))
-        elif name == "bench.window":
+        elif name == WINDOW:
             win = (a, b)
-        elif name in spans:
-            host.append((name, a, b))
-    return dev, host, win
+    return dev, win
 
 
 def doing(host, a, b) -> str:
-    """What the host did for most of (a, b): the innermost of the `host`
-    spans [(name, start, end)] at each instant, summed by name; "host"
-    where none runs."""
+    """What the host did for most of (a, b): the innermost (shortest) of
+    the `host` spans [(name, start, end)], of any thread, open at each
+    instant, summed by name; "host" where none is open."""
     spans = [(e - s, n, s, e) for n, s, e in host if s < b and e > a]
     cuts = sorted({a, b} | {x for _, _, s, e in spans for x in (s, e)
                             if a < x < b})
@@ -190,7 +205,7 @@ def doing(host, a, b) -> str:
 def breakdown(dev, host, win) -> dict:
     """The device operations by total time, and the longest idle gaps
     of the window, each named by what the host did for most of it
-    (`doing` over `host`, the program's trace stages)."""
+    (`doing` over `host`, the program's stage spans of every thread)."""
     tot = {}
     for n, a, b in dev:
         tot[n] = tot.get(n, 0.0) + (b - a)
@@ -230,22 +245,28 @@ def run(cell: dict, seed: int, seconds: float, trace: bool,
     config, traffic = cell["config_file"], cell["traffic_file"]
     gen = core.load_module("gen", traffic["gen"])
     docs = gen.documents(seed, **traffic["params"])
+    key = traffic.get("dictionary")  # the entry's keyword, or None
+    dicts = gen.dictionaries(seed, **traffic["params"]) if key else None
+    per_doc = [{key: d} for d in dicts] if key else None
     fn = entry_point(config)
     if fault:
-        fn = faults.FAULTS[fault](fn)
+        fn = faults.plant(fault, fn, key, dicts)
     kwargs = dict(config["kwargs"])
     if not cuda:
         kwargs["device"] = device
-    fn(docs[0][:config["warmup_bytes"]], **kwargs)
+    fn(docs[0][:config["warmup_bytes"]],
+       **kwargs, **(per_doc[0] if per_doc else {}))
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     setup_s = process_age()
-    loop = (fn, kwargs, docs, seconds, traffic["clients"], sync)
+    loop = (fn, kwargs, docs, seconds, traffic["clients"], sync, per_doc)
     if trace:
         with traced(cuda) as tr:
             records, window_s = closed_loop(*loop)
-        dev, host, win = read_trace(tr.prof, tr.spans)
+        dev, win = read_trace(tr.prof, tr.spans)
+        got = S.window()
+        host = S.stages(got[0]) if got else []
         stages = tr.stages
         print("benchmark: stages " + "; ".join(
             f"{k} {c} calls {t * 1e3:.1f} ms" for k, (c, t) in
@@ -286,7 +307,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool,
         print(f"benchmark: {msg}", file=sys.stderr)
 
     numbers = check.compare(docs, [r[:2] for r in records],
-                            config["guarantee"]["window_bits"])
+                            config["guarantee"]["window_bits"], dicts)
     result = {
         "correct": all(numbers[k] <= check.LIMITS[k] for k in numbers),
         "attempted": len(records),

@@ -29,6 +29,12 @@ def closed(spans):
             if s.end_ns is not None]
 
 
+def stages(spans):
+    """(name, start s, end s) of every closed stage span: any span but a
+    request's, on any thread."""
+    return [c for c in closed(spans) if c[0] != REQUEST]
+
+
 def seconds(spans, name) -> float:
     """The summed seconds of every span `name`, on any thread."""
     return sum(b - a for n, a, b in closed(spans) if n == name)
@@ -54,7 +60,7 @@ def idle_unspanned_share(spans, device_ops):
                 if a < hi and b > lo]
 
     busy = clip((a, b) for _, a, b in device_ops)
-    staged = clip((a, b) for n, a, b in closed(spans) if n != REQUEST)
+    staged = clip((a, b) for _, a, b in stages(spans))
     idle = (hi - lo) - device_intervals_union(busy)
     if idle <= 0:
         return None

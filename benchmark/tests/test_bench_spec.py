@@ -78,3 +78,22 @@ def test_entries_keep_to_the_contract():
                                   if m["unit"] == "%"])
 def test_shares_are_named_as_shares(name):
     assert name.endswith("_roofline") or name.endswith("_share")
+
+
+def test_every_dictionary_traffic_has_a_generator_of_dictionaries():
+    """A traffic that names the entry's dictionary keyword has a
+    generator whose `dictionaries` gives one per document."""
+    named = []
+    for path in sorted((core.HERE / "traffic").glob("*.json")):
+        t = json.loads(path.read_text())
+        if "dictionary" not in t:
+            continue
+        named.append(path.stem)
+        assert t["dictionary"].isidentifier(), path.name
+        gen = core.load_module("gen", t["gen"])
+        assert callable(getattr(gen, "dictionaries", None)), path.name
+        docs = gen.documents(3, **t["params"])
+        dicts = gen.dictionaries(3, **t["params"])
+        assert len(dicts) == len(docs) and all(
+            isinstance(d, bytes) and d for d in dicts), path.name
+    assert "versions" in named

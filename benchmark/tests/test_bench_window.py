@@ -83,3 +83,25 @@ def test_breakdown_names_gaps_by_what_the_host_did_most():
     b = run.breakdown(dev, host, (0.0, 7.0))
     assert b["device_ops"] == [["k1", 1.5], ["k2", 1.0]]
     assert b["idle_gaps"] == [["dp.dict-probe", 4.0], ["host", 0.5]]
+
+
+def test_gaps_are_named_by_the_program_spans_of_every_thread():
+    """The main thread waits in no stage while a pool thread serializes:
+    the gap reads `serialize`; where only a request span is open it
+    reads `host` (a request is no stage); open spans name nothing."""
+    from benchmark import spans as S
+    from brotli_tpu_torch.utils import trace
+
+    def span(name, a, b, thread):
+        return trace.Span(name, int(a * 1e9), None if b is None else
+                          int(b * 1e9), thread, 1, None, None)
+
+    program = [span("request", 0.0, 10.0, 1),
+               span("match.dispatch", 0.0, 1.0, 1),
+               span("serialize", 1.5, 4.5, 2),
+               span("match.dict-post", 6.0, 7.5, 1),
+               span("serialize", 9.0, None, 3)]
+    dev = [("k", 0.5, 1.0), ("k", 5.0, 6.0), ("k", 8.0, 8.5)]
+    b = run.breakdown(dev, S.stages(program), (0.0, 10.0))
+    assert b["idle_gaps"] == [["serialize", 4.0], ["match.dict-post", 2.0],
+                              ["host", 1.5], ["match.dispatch", 0.5]]
