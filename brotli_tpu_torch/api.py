@@ -107,7 +107,8 @@ def compress(string, mode=MODE_GENERIC, quality=_QUALITY_DEFAULT,
     runs the plain versions of the kernels) and what the native encoder
     takes there; "native" takes the native encoder wherever it can;
     "device" and "python" the Python pipeline, "device" with the card's
-    q10/q11 route first. `backend` takes the place of its
+    q10/q11 route first, a raw dictionary included (RFC 9842 `dcb`: the
+    dictionary is the parse's history). `backend` takes the place of its
     BROTLI_TPU_BACKEND: "auto" lets the Python pipeline's match finders
     take the card where the JAX package takes its device, "numpy" keeps
     them on the host. See enc/encoder.encode.

@@ -14,12 +14,19 @@
 //           -1 and word 0, so they never match, and neither does a
 //           padding row;
 //   dist  = p - order[i - k], kept when 0 < dist <= max_distance (the
-//           tests also run a window of (1 << 10) - 16);
+//           tests also run a window of (1 << 10) - 16), or at any dist
+//           when the source lies in a raw dictionary before the stream:
+//           `base` is the stream position of the segment's first byte
+//           (negative where the segment starts in the dictionary, the
+//           dcb route's halo), and dist > base + p puts the source
+//           there; base >= 0 puts none there;
 //   mlen  = the count of equal leading bytes of the 32 bytes at p and at
 //           p - dist, both read cyclically (jnp.roll's wrap at the
 //           segment's bucket end), capped at max(npos + 3 - p, 0) with
 //           npos the level's (the segment's npos - (plen - 4)): the
 //           guard is what keeps a match from running into the wrap;
+//           a dictionary source's length also stops at the
+//           dictionary's end, dist - (base + p);
 //   out   = mlen >= 2 ? mlen << 25 | dist : 0, as int32.
 //
 // Launch 1, btt_edge_ranks, once a level: the sort-carry. The TPU sorts
@@ -147,7 +154,7 @@ edge_ranks_kernel(const int* __restrict__ key_s,
                   const unsigned char* __restrict__ data,
                   int* __restrict__ words, long long n, Ranks rk,
                   int nranks, int kmax,
-                  long long npos, long long max_distance) {
+                  long long npos, long long max_distance, long long base) {
   __shared__ int key_sm[S];
   __shared__ int pos_sm[S];
   __shared__ unsigned win_sm[WORDS][S];
@@ -203,6 +210,7 @@ edge_ranks_kernel(const int* __restrict__ key_s,
     const int h = ki >> 14;
     long long guard = npos + 3 - p;
     if (guard < 0) guard = 0;
+    const long long sp = base + p;  // the stream position
     bool loaded = false;
 #pragma unroll
     for (int r = 0; r < MAX_RANKS; ++r) {
@@ -210,7 +218,8 @@ edge_ranks_kernel(const int* __restrict__ key_s,
       const int sj = s - rk.k[r];
       if (sj < lo || (key_sm[sj] >> 14) != h) continue;
       const int dist = p - pos_sm[sj];
-      if (dist <= 0 || dist > max_distance) continue;
+      const bool in_dict = dist > sp;
+      if (dist <= 0 || (dist > max_distance && !in_dict)) continue;
       if (!loaded) {
 #pragma unroll
         for (int x = 0; x < WORDS; ++x) w[x] = win_sm[x][s];
@@ -226,7 +235,8 @@ edge_ranks_kernel(const int* __restrict__ key_s,
         }
         mlen += 4;
       }
-      const long long m = mlen < guard ? mlen : guard;
+      long long m = mlen < guard ? mlen : guard;
+      if (in_dict && m > dist - sp) m = dist - sp;
       if (m >= 2) packed[r] = (int)((m << 25) | dist);
     }
   }
@@ -281,7 +291,7 @@ extern "C" int btt_edge_ranks(const int* key_s, const long long* order,
                               const unsigned char* data, int* words,
                               long long n, const int* ranks, int nranks,
                               long long npos, long long max_distance,
-                              cudaStream_t stream) {
+                              long long base, cudaStream_t stream) {
   if (n < 32 || n >= (1LL << 31) || (n & 15) != 0 || nranks < 1 ||
       nranks > MAX_RANKS || ((uintptr_t)data & 15) != 0 ||
       ((uintptr_t)words & 15) != 0)
@@ -295,7 +305,8 @@ extern "C" int btt_edge_ranks(const int* key_s, const long long* order,
   }
   const long long blocks = (n + T - 1) / T;
   edge_ranks_kernel<<<(unsigned)blocks, T, 0, stream>>>(
-      key_s, order, data, words, n, rk, nranks, kmax, npos, max_distance);
+      key_s, order, data, words, n, rk, nranks, kmax, npos, max_distance,
+      base);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ uncompressed fallback, streaming.
 Routes, chosen by the JAX package's conditions before any work:
 - the native one-shot and streaming encoders, for what they take;
 - the q10/q11 device encode, where the optimal-parse DP on the card
-  streams finished metablock spans into a native serialization worker;
+  streams finished metablock spans into a native serialization worker,
+  with a raw dictionary as the parse's history where one is given;
 - the Python pipeline for everything else: a match finder over the
   whole input (`find_matches`: the device DP or matcher on the card,
   or the host matchers and the host DP), then per-metablock command
@@ -36,6 +37,10 @@ from .quality import policy
 
 _DEFAULT_MB_BITS = 22  # metablock size (lgblock); <= 24
 MIN_DEVICE_INPUT = 1 << 18  # the JAX package's device-DP threshold
+# the most dictionary and input bytes the dcb card route takes: in the DP
+# a static word's distance is its concatenated position + 1 + a 17-bit
+# offset, which must fit the 25-bit payloads
+MAX_DCB_BYTES = (1 << 25) - (1 << 18)
 _VECTOR_THRESHOLD = 1 << 16  # below this the serial matcher is faster
 # the input sizes the host DP takes at q10/q11 (larger ones take the
 # iterated cost-model parse)
@@ -126,6 +131,10 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
       raises without one); "native" takes the native encoder there and
       "python" the Python pipeline (the JAX package's default takes its
       native q10/q11 tier);
+    - the same with a raw dictionary and encoder "device" (RFC 9842
+      `dcb`; dictionary and input together under MAX_DCB_BYTES, the v3
+      DP): the device DP parses the input with the dictionary as
+      history and the native serializer writes compound references;
     - no dictionary and no base64 in modes 0-2: the native one-shot
       encoder ("auto", "native");
     - everything else, and every input with encoder "device" or
@@ -156,8 +165,9 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
     D = len(dictionary) if dictionary else 0
     large = lgwin > C.MAX_WINDOW_BITS
     maxback = C.max_backward_distance(lgwin)
-    card_q11 = (backend == "auto" and plain and quality >= 10
-                and n >= MIN_DEVICE_INPUT and D == 0 and not large)
+    card = (backend == "auto" and plain and quality >= 10
+            and n >= MIN_DEVICE_INPUT and not large)
+    card_q11 = card and D == 0
     if card_q11 and encoder == "auto":
         # the port's default, where the JAX package's default takes its
         # native q10/q11 tier
@@ -169,6 +179,10 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
     if card_q11 and encoder != "python":
         return _encode_on_card(raw, maxback, quality, lgblock, lgwin,
                                device, dp)
+    if (card and D and encoder == "device" and D + n <= MAX_DCB_BYTES
+            and (dp is None or dp.mode == "v3")):
+        return _encode_on_card(raw, maxback, quality, lgblock, lgwin,
+                               device, dp, bytes(dictionary))
     bw = BitWriter()
     bitstream.write_stream_header(bw, lgwin)
     if n == 0:
@@ -203,12 +217,13 @@ def encode(data: bytes, quality: int = 11, lgwin: int = 22,
     return out
 
 
-def _encode_on_card(raw, maxback, quality, lgblock, lgwin, device, dp):
-    """The q10/q11 device encode of `raw`, or the uncompressed stream
-    where that is not smaller."""
+def _encode_on_card(raw, maxback, quality, lgblock, lgwin, device, dp,
+                    dictionary=None):
+    """The q10/q11 device encode of `raw` (with a raw `dictionary`), or
+    the uncompressed stream where that is not smaller."""
     arr = np.frombuffer(raw, dtype=np.uint8)
     out = _encode_q11_streamed(arr, len(raw), maxback, quality, lgblock,
-                               lgwin, resolve(device), dp)
+                               lgwin, resolve(device), dp, dictionary)
     if len(out) >= len(raw) + 4:
         return _store_uncompressed(arr, lgwin)
     return out
@@ -248,7 +263,15 @@ def _custom_word_matches(arr, D, matches, shared, maxback):
 def _lift_dictionary_matches(matches, D, maxback):
     """Convert concat-space matches whose source lies in the dictionary
     prefix into compound-dictionary references (RFC shared-brotli):
-    stream distance = min(pos, window) + (D - source_offset)."""
+    stream distance = min(pos, window) + (D - source_offset).
+
+    Static-dictionary words (flags >= 2) sit past the compound region:
+    the matcher gave them min(m, maxback) + 1 + offset at concat
+    position m, the stream wants min(pos, maxback) + D + 1 + offset.
+    The two agree while m <= maxback; past it the concat distance
+    lands inside the compound region, and the decoder copies
+    dictionary bytes where the word belongs (the JAX package's fault,
+    repaired here)."""
     m, lens, dists, flags = matches
     src = m - dists
     in_dict = (src < D) & (flags == 0)
@@ -258,6 +281,8 @@ def _lift_dictionary_matches(matches, D, maxback):
     p = m - D  # stream position
     dists = np.where(in_dict,
                      np.minimum(p, maxback) + (D - src), dists)
+    dists = np.where(flags >= 2, dists - np.minimum(m, maxback) +
+                     np.minimum(p, maxback) + D, dists)
     flags = np.where(in_dict, 1, flags)
     keep = lens >= 2
     return m[keep], lens[keep], dists[keep], flags[keep]
@@ -285,26 +310,29 @@ def _write_blocks(bw, arr, lo, hi, matches, lgblock, is_last,
 
 
 def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
-                         device=None, dp=None):
+                         device=None, dp=None, dictionary=None):
     """Producer/consumer q11 encode: the device DP streams finished
     metablock spans into a serialization worker.
 
     Every span serializes to a byte-aligned blob (non-last spans end
     with an empty metadata block, the BROTLI_OPERATION_FLUSH stitch) by
     the native matches-array serializer; the 4-slot distance ring
-    carries across spans."""
+    carries across spans. With a raw `dictionary` the parse copies from
+    it too, and the serializer writes those copies as compound
+    references."""
     q = queue.Queue(maxsize=4)
     err = []
     state = {"ring": None}
     parts = []
     native.get_lib()
     data_bytes = arr.tobytes()
+    dict_len = len(dictionary) if dictionary else 0
 
     def serialize_span(lo, hi, matches):
         blob, ring = native.serialize_region(
             data_bytes, lo, hi, matches, quality, lgwin,
             ring=state["ring"], write_header=(lo == 0), is_last=hi >= n,
-            align_end=True)
+            align_end=True, dict_len=dict_len)
         state["ring"] = ring
         parts.append(blob)
 
@@ -338,7 +366,8 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
 
     try:
         find_matches_optimal(arr, maxback, on_block=on_block,
-                             mb_size=1 << lgblock, device=device, dp=dp)
+                             mb_size=1 << lgblock, device=device, dp=dp,
+                             dictionary=dictionary)
     finally:
         with trace.stage("serialize.wait"):
             q.put(None)

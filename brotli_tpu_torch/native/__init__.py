@@ -4,7 +4,10 @@ call (the seed parse, the static-dictionary probe and post-pass, the
 region serializer, package-merge code lengths, the device decoder's
 symbol parse). Copy of the ctypes bindings of brotli_tpu.native over
 verbatim copies of its C sources, plus the port's own cap-hit extension
-(btpu_extend.c).
+(btpu_extend.c), compound-reference serialization (btpu_compound.c) and
+the seed parse after a dictionary (btpu_history.c, which includes
+btpu_enc.c to reach its static matcher, so btpu_enc.c is compiled
+through it).
 
 The library is compiled with the system compiler into `_build/` at
 first use; it is never committed.
@@ -24,8 +27,10 @@ from ..utils import filelock
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _LIB = _DIR / "_build" / "libbtpu.so"
-_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_enc.c",
-         _DIR / "btpu_extend.c")
+# the files compiled; btpu_enc.c through btpu_history.c, which includes it
+_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_history.c",
+         _DIR / "btpu_extend.c", _DIR / "btpu_compound.c")
+_DEPS = _SRCS + (_DIR / "btpu_enc.c", _DIR / "btpu_tables.h")
 
 _lib = None
 _lock = threading.Lock()
@@ -39,8 +44,7 @@ def build() -> bool:
     never loads a library that another is still writing."""
     (_DIR / "_build").mkdir(exist_ok=True)
     with filelock.locked(_DIR / "_build" / "build.lock"):
-        newest = max(s.stat().st_mtime
-                     for s in _SRCS + (_DIR / "btpu_tables.h",))
+        newest = max(s.stat().st_mtime for s in _DEPS)
         if _LIB.exists() and _LIB.stat().st_mtime >= newest:
             return False
         tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
@@ -71,6 +75,10 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_size_t,
                 ctypes.POINTER(ctypes.c_size_t)]
             lib.btpu_find_matches.restype = ctypes.c_int
+            sig = list(lib.btpu_find_matches.argtypes)
+            lib.btpu_find_matches_after.argtypes = (
+                sig[:2] + [ctypes.c_size_t] + sig[2:])
+            lib.btpu_find_matches_after.restype = ctypes.c_int
             lib.btpu_serialize.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
                 ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
@@ -80,6 +88,10 @@ def get_lib():
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_size_t), ctypes.c_void_p]
             lib.btpu_serialize.restype = ctypes.c_int
+            sig = list(lib.btpu_serialize.argtypes)
+            lib.btpu_serialize_compound.argtypes = (
+                sig[:6] + [ctypes.c_size_t] + sig[6:])
+            lib.btpu_serialize_compound.restype = ctypes.c_int
             lib.btpu_dict_post.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
                 ctypes.c_size_t, ctypes.c_size_t, ctypes.c_char_p,
@@ -424,20 +436,23 @@ def parse_stream(data: bytes, large_window: bool = False):
     return (lits, *cmds, max_depth.value)
 
 
-def find_matches(data: bytes, quality: int, lgwin: int):
+def find_matches(data: bytes, quality: int, lgwin: int, start: int = 0):
     """Native greedy/lazy match finder (no emission, no dictionary):
     (pos, len, dist) uint32 arrays in position order -- the DP's seed
-    parse."""
+    parse. `start` > 0: data[:start] is history (a raw dictionary) that
+    is indexed and not parsed; the matches start at `start` or later
+    and may copy from it (btpu_history.c)."""
     lib = get_lib()
     n = len(data)
-    cap = n // 4 + 16
+    cap = (n - start) // 4 + 16
     pos = np.empty(cap, np.uint32)
     lens = np.empty(cap, np.uint32)
     dist = np.empty(cap, np.uint32)
     cnt = ctypes.c_size_t()
-    rc = lib.btpu_find_matches(data, n, quality, lgwin, _ptr(pos),
-                               _ptr(lens), _ptr(dist), cap,
-                               ctypes.byref(cnt))
+    fn, extra = ((lib.btpu_find_matches_after, (start,)) if start
+                 else (lib.btpu_find_matches, ()))
+    rc = fn(data, n, *extra, quality, lgwin, _ptr(pos), _ptr(lens),
+            _ptr(dist), cap, ctypes.byref(cnt))
     if rc != 0:
         raise ValueError(_ENC_ERRORS.get(rc, f"match-find error {rc}"))
     k = cnt.value
@@ -518,10 +533,14 @@ def dict_probe_all(data: bytes, mpos, mlen, base: int = 0,
 def serialize_region(data: bytes, lo: int, hi: int, matches,
                      quality: int, lgwin: int, ring=None,
                      write_header: bool = False, is_last: bool = False,
-                     align_end: bool = True):
+                     align_end: bool = True, dict_len: int = 0):
     """Native serialization of a parsed region from (pos, len, dist,
     flag) match arrays (BrotliStoreMetaBlock role). Returns (bytes,
-    exit_ring). Raises ValueError for unsupported flags."""
+    exit_ring). Raises ValueError for unsupported flags.
+
+    `dict_len` > 0: a raw dictionary of that many bytes precedes the
+    stream, and flag 1 marks a reference into it (btpu_compound.c), at
+    lgwin 24 or less; a flag-1 match outside the dictionary raises."""
     lib = get_lib()
     m, lens, dists, flags = (np.ascontiguousarray(a, np.uint32)
                              for a in matches)
@@ -531,9 +550,11 @@ def serialize_region(data: bytes, lo: int, hi: int, matches,
     ring_out = np.zeros(4, np.uint32)
     out_ptr = ctypes.c_void_p()
     out_len = ctypes.c_size_t()
-    rc = lib.btpu_serialize(
-        data, len(data), lo, hi, quality, lgwin, _ptr(m), _ptr(lens),
-        _ptr(dists), _ptr(flags), len(m),
+    fn, extra = ((lib.btpu_serialize_compound, (dict_len,)) if dict_len
+                 else (lib.btpu_serialize, ()))
+    rc = fn(
+        data, len(data), lo, hi, quality, lgwin, *extra, _ptr(m),
+        _ptr(lens), _ptr(dists), _ptr(flags), len(m),
         _ptr(ring_in) if ring_in is not None else None,
         1 if write_header else 0, 1 if is_last else 0,
         1 if align_end else 0,

@@ -78,7 +78,8 @@ _SIGNATURES = {
     "btt_edge_keys": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_longlong, _P],
     "btt_edge_ranks": [_P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong, _P],
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, _P],
     "btt_edge_rows": [_P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P],
     "btt_edge_slots": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
                        ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -396,12 +397,14 @@ def edge_keys(data, npos, plen):
     return key
 
 
-def edge_ranks(key_s, order, data, npos, max_distance, ranks, words):
+def edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
+               base=0):
     """K10's level launch on the card: a level's stably sorted int32 keys
     and their int64 order (n,), the uint8 bytes (n,) (16-byte aligned, n
     a multiple of 16) -> the level's candidates (len << 25 | dist) in
     position order into the int32 `words` (n, MAX_RANKS), 16-byte
-    aligned, zero past len(ranks)."""
+    aligned, zero past len(ranks). `base`: the stream position of the
+    segment's first byte (ops.optimal.edge_ranks_plain)."""
     _check(key_s, "key_s", 1)
     _check(order, "order", 1, torch.int64)
     _check(data, "data", 1, torch.uint8)
@@ -417,7 +420,7 @@ def edge_ranks(key_s, order, data, npos, max_distance, ranks, words):
     rk = (ctypes.c_int * nranks)(*ranks)
     _launch("edge_ranks", "btt_edge_ranks", key_s.device, key_s.data_ptr(),
             order.data_ptr(), data.data_ptr(), words.data_ptr(), n, rk,
-            nranks, int(npos), int(max_distance))
+            nranks, int(npos), int(max_distance), int(base))
     _count("edge_ranks")
 
 

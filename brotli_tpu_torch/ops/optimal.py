@@ -84,6 +84,9 @@ NO_EDGE = 1 << 29         # no edge reaches a window column
 SCAN_INF = 1 << 30        # unreached window cell (K3's INF)
 BIGD = 0x7FFFFFFF         # K1's "no payload" marker
 MASK25 = (1 << 25) - 1
+# K11's clamp with a raw dictionary (segment_tables): above every
+# concatenated position, so a static word's distance is never clamped
+FAR = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,7 +225,8 @@ def edge_keys_plain(data, npos, plen):
     return (key - (1 << 31)).to(torch.int32)
 
 
-def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks):
+def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks,
+                     base=0):
     """K10, plain version of the rank loop of optimal_jax._level_candidates
     and its sort back to position order. key_s, order: the stable sort
     of K9's int32 keys and its int64 order (only a stable sort gives the
@@ -234,20 +238,30 @@ def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks):
     matches), the row is live (key < 0), and 0 < dist <= max_distance;
     its length is the common prefix of the 32 cyclic bytes at both
     positions, capped at the level's npos + 3 - pos and dropped below 2.
-    Returns int32 (n, len(ranks)) len << 25 | dist (0 where none), in
-    position order."""
+
+    `base`: the stream position of the segment's first byte, negative
+    where the segment starts inside a raw dictionary that precedes the
+    stream (the dcb route's halo). A candidate whose dist exceeds its
+    stream position base + pos lies in that dictionary: it is kept at
+    any dist (a compound reference reaches the whole dictionary) and
+    its length stops at the dictionary's end, dist - (base + pos). With
+    base >= 0 no candidate lies there, so the result does not depend on
+    it. Returns int32 (n, len(ranks)) len << 25 | dist (0 where none),
+    in position order."""
     n = key_s.shape[0]
     pos_s = order
     w_s = [x[order] for x in _words(data)]
     h_s = key_s >> 14
     live = key_s < 0
     guard = torch.clamp(npos + 3 - pos_s, min=0)
+    spos_s = base + pos_s  # stream positions
     out = torch.empty((n, len(ranks)), dtype=torch.int32, device=key_s.device)
     packed_s = torch.empty_like(out)
     for j, k in enumerate(ranks):
         same = (h_s == _shift_up(h_s, k, 1 << 17)) & live
         dist = pos_s - _shift_up(pos_s, k, -1)
-        valid = same & (dist > 0) & (dist <= max_distance)
+        in_dict = dist > spos_s
+        valid = same & (dist > 0) & ((dist <= max_distance) | in_dict)
         mlen = torch.zeros(n, dtype=torch.int64, device=key_s.device)
         alive = valid
         for ws in w_s:
@@ -255,6 +269,7 @@ def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks):
             mlen = mlen + torch.where(alive, _tz_bytes_u32(x), 0)
             alive = alive & (x == 0)
         mlen = torch.minimum(mlen, guard)
+        mlen = torch.where(in_dict, torch.minimum(mlen, dist - spos_s), mlen)
         mlen = torch.where(valid & (mlen >= 2), mlen, 0)
         packed_s[:, j] = ((mlen << 25) | torch.where(mlen > 0, dist, 0)).to(
             torch.int32)
@@ -277,16 +292,18 @@ def edge_keys(data, npos, plen):
     return kernels.edge_keys(data, npos, plen)
 
 
-def edge_ranks(key_s, order, data, npos, max_distance, ranks, words):
+def edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
+               base=0):
     """K10's level launch into the int32 (n, 16) `words` (position order,
     zero past len(ranks)), filled in place: the plain version on the CPU,
     csrc/edge_ranks.cu on the card."""
     if key_s.device.type == "cpu":
         words.zero_()
         words[:, :len(ranks)] = edge_ranks_plain(key_s, order, data, npos,
-                                                 max_distance, ranks)
+                                                 max_distance, ranks, base)
         return
-    kernels.edge_ranks(key_s, order, data, npos, max_distance, ranks, words)
+    kernels.edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
+                       base)
 
 
 def edge_rows(words, nranks):
@@ -297,12 +314,12 @@ def edge_rows(words, nranks):
     return kernels.edge_rows(words, nranks)
 
 
-def _candidates(data, npos, max_distance, levels=LEVELS):
+def _candidates(data, npos, max_distance, levels=LEVELS, base=0):
     """Every level's rank candidates: per level K9, the stable sort and
     K10's level launch (the level's candidates as whole 16-word rows in
     position order), each level on its own npos - (plen - 4); then K10's
     row pass into one int32 (n, ncand) table (13 + 14 columns; 37 with
-    the 16-byte level)."""
+    the 16-byte level). `base`: K10's (edge_ranks_plain)."""
     n = data.shape[0]
     words = torch.empty((len(levels), n, kernels.MAX_RANKS),
                         dtype=torch.int32, device=data.device)
@@ -311,7 +328,7 @@ def _candidates(data, npos, max_distance, levels=LEVELS):
         key_s, order = torch.sort(edge_keys(data, lvl_npos, plen),
                                   stable=True)
         edge_ranks(key_s, order, data, lvl_npos, max_distance, ranks,
-                   words[lvl])
+                   words[lvl], base)
     return edge_rows(words, [len(ranks) for _, ranks in levels])
 
 
@@ -458,17 +475,31 @@ def edge_slots(cand, data, max_distance, dist_sym_bits_q, seed_pos,
 
 def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
                    dist_sym_bits_q, seed_pos, seed_len, seed_dist,
-                   dict_pos, dict_pay, seg_base, levels=LEVELS):
+                   dict_pos, dict_pay, seg_base, levels=LEVELS,
+                   dict_len=0):
     """Stage 1 of a v3 segment: the candidates (K9, the sorts, K10) and
     the slot tables (K11): the 29 edge slots (27 candidate ranks, the
     atomic dictionary slot, the continuation slot; 39 with the 16-byte
     level) as int32 (nslots, n) `pd_flat` (len<<25 | dist) and
     `cs_flat` (distance cost), the int32 (n,) per-position literal cost
-    and the int32 (n,) `dist_fill` of `_edges_slots`."""
-    return edge_slots(_candidates(data, npos, max_distance, levels), data,
-                      max_distance, dist_sym_bits_q, seed_pos, seed_len,
+    and the int32 (n,) `dist_fill` of `_edges_slots`.
+
+    `seg_base`: the stream position of the segment's first byte. With a
+    raw dictionary of `dict_len` bytes before the stream (the dcb
+    route), distances are those of the dictionary and the stream laid
+    end to end: K10 keeps sources in the dictionary at any distance
+    (its `base`), and K11 is given the concatenated position and no
+    clamp, so a static word's distance is that position + 1 + its
+    offset, past every copy's; `_collect_v3` maps it to the stream's."""
+    if dict_len:
+        slot_base, slot_max = seg_base + dict_len, FAR
+    else:
+        slot_base, slot_max = seg_base, max_distance
+    return edge_slots(_candidates(data, npos, max_distance, levels,
+                                  seg_base), data,
+                      slot_max, dist_sym_bits_q, seed_pos, seed_len,
                       seed_dist, bits_tab, ctx_tab, dict_pos, dict_pay,
-                      seg_base)
+                      slot_base)
 
 
 def edges_v1(data, npos, max_distance, litbits_q, dist_sym_bits_q,
@@ -758,11 +789,11 @@ def compact(gsrc, vals, npos):
 def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
                   dist_sym_bits_q, seed_pos, seed_len, seed_dist,
                   dict_pos, dict_pay, seg_base, *, capm, cfg=DPConfig(),
-                  icell_q=None):
+                  icell_q=None, dict_len=0):
     """One segment's optimal parse (counterpart of
     optimal_jax._dp_v3_impl): edges -> K1 -> K3 (K8 with
     cfg.ring_scan, its edge capped by the implicit-cell row `icell_q`
-    with cfg.icell) -> K4 -> compaction.
+    with cfg.icell) -> K4 -> compaction. `dict_len`: segment_tables'.
 
     Returns (packed, stacked): packed is int64 (2, capm + 8) holding
     uint32 values, with the match count at [0, 0] and matches at
@@ -771,7 +802,7 @@ def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
     pd_flat, cs_flat, litq, dist_fill = segment_tables(
         data, npos, max_distance, bits_tab, ctx_tab, dist_sym_bits_q,
         seed_pos, seed_len, seed_dist, dict_pos, dict_pay, seg_base,
-        cfg.levels)
+        cfg.levels, dict_len)
     mp = suffix_min(pd_flat, cs_flat, copyq)
     del pd_flat, cs_flat
     if cfg.ring_scan:
@@ -883,14 +914,20 @@ def _slice_seg(dev_big, lo, b):
     return dev_big[lo:lo + b]
 
 
-def upload_input(arr, n, device):
+def upload_input(arr, n, device, head=None):
     """One host-to-device copy of the whole bucket-padded input;
-    segments are slices of it."""
+    segments are slices of it. `head`: bytes laid before the input (the
+    dcb route's dictionary tail, as long as the segments' halos reach
+    before the stream), a multiple of 16 long so the input's segments
+    stay 16-byte aligned."""
     tail = n - (n // SEG_V3) * SEG_V3
     pad_to = (n // SEG_V3) * SEG_V3 + (_bucket_v3(tail) if tail else 0)
+    a = 0 if head is None else len(head)
     with trace.stage("dp.upload"):
-        big = np.zeros(max(pad_to, BUCKETS_V3[0]), np.uint8)
-        big[:n] = arr[:n]
+        big = np.zeros(a + max(pad_to, BUCKETS_V3[0]), np.uint8)
+        if a:
+            big[:a] = head
+        big[a:a + n] = arr[:n]
         return torch.from_numpy(big).to(device)
 
 
@@ -906,45 +943,60 @@ def device_tables(tables, device):
                 torch.from_numpy(distq.astype(np.int32)).to(device))
 
 
-def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device):
+def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device, halo=0):
     """Per-segment host prep as device tensors: (npos, seed_pos,
-    seed_len, seed_dist, dict_pos, dict_pay)."""
+    seed_len, seed_dist, dict_pos, dict_pay), positions counted from a
+    buffer that holds `halo` bytes of history before the segment."""
     dpos_g, dpay_g, _ = dict_g
     with trace.stage("dp.seg-prep"):
         npos, *rest = _prep_segment_v3(arr, seeds_list, dpos_g, dpay_g,
                                        lo, hi, b)
+        if halo:
+            npos += halo
+            rest[0] = rest[0] + halo
+            rest[3] = rest[3] + halo
     with trace.stage("dp.upload"):
         return (npos,) + tuple(
             torch.from_numpy(a.astype(np.int64)).to(device) for a in rest)
 
 
 def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
-                 base=0, dict_g=None, lo_start=0):
+                 base=0, dict_g=None, lo_start=0, hist=None):
     """Run every segment's DP from `lo_start` (device work is queued
     asynchronously; nothing waits for it here; each segment records an
     event when queued, which its collect waits on). Returns (handles,
     dict_table): dict_table = (global hit positions, word lengths) for
     flag recovery at collect time. `dict_g`: an already computed
-    _dict_probe_global result."""
+    _dict_probe_global result.
+
+    `hist` (a RawDictionary): `dev_big` holds its tail before the input
+    (upload_input's head), and each segment's buffer starts `_halo`
+    bytes before the segment, the DP running in the concatenated
+    distances of dp_v3_segment's `dict_len`."""
     dev = dev_big.device
     bits_tab, ctx_tab, copyq, distq = device_tables(tables, dev)
     icell_q = torch.from_numpy(tables[4].astype(np.int32)).to(dev) \
         if cfg.icell else None
     if dict_g is None:
         dict_g = _dict_probe_global(arr, seeds_list, base, max_distance)
+    head = 0 if hist is None else _dict_head(n, hist)
     handles = []
     for lo in range(lo_start, n, SEG_V3):
         hi = min(lo + SEG_V3, n)
         b = _bucket_v3(hi - lo)
         capm = b // CAPM_DIV
+        h = _halo(lo, hi, b, hist)
         npos, spos, slen, sdist, dloc, dval = segment_inputs(
-            arr, seeds_list, dict_g, lo, hi, b, dev)
+            arr, seeds_list, dict_g, lo, hi, b, dev, h)
+        seg = (_slice_seg(dev_big, lo, b) if hist is None else
+               dev_big[head + lo - h:head + lo - h + b])
         with trace.stage("dp.dispatch"):
             packed, full = dp_v3_segment(
-                _slice_seg(dev_big, lo, b), npos, max_distance, bits_tab,
-                ctx_tab, copyq, distq, spos, slen, sdist, dloc, dval,
-                lo + base, capm=capm, cfg=cfg, icell_q=icell_q)
-        handles.append((lo, capm, packed, full, fetch.mark(dev)))
+                seg, npos, max_distance, bits_tab, ctx_tab, copyq, distq,
+                spos, slen, sdist, dloc, dval, lo + base - h, capm=capm,
+                cfg=cfg, icell_q=icell_q,
+                dict_len=0 if hist is None else hist.size)
+        handles.append((lo, capm, packed, full, fetch.mark(dev), h))
     dpos_g, _, dwlen_g = dict_g
     return handles, (dpos_g.astype(np.int64), dwlen_g)
 
@@ -1027,17 +1079,22 @@ def _to_u32(events, tensors):
     return fetch.fetch_after(events, tensors).numpy().astype(np.uint32)
 
 
-def _collect_v3(handles, dict_table, max_distance, base=0):
+def _collect_v3(handles, dict_table, max_distance, base=0, hist=None):
     """One stacked device-to-host copy per packed shape, sliced to half
     the match cap (the count-first layout keeps the count inside the
     slice; rare overflows pay a second fetch). Each copy waits only on
     the events of the segments it reads. Matches whose distance
     exceeds the window at their position are the DP's dictionary
     edges; their word-length flags (2000 + wlen) come back from the
-    host probe table."""
+    host probe table.
+
+    With `hist` (the dcb route) a segment's matches in its halo are
+    dropped, the copies keep their concatenated distances, and a static
+    word is what lies past its concatenated position; its distance
+    becomes the stream's, min(pos, max_distance) + D + 1 + offset."""
     dpos_g, dwlen_g = dict_table
     groups = {}
-    for i, (_lo, capm, packed, _full, _ev) in enumerate(handles):
+    for i, (_lo, capm, packed, _full, _ev, _h) in enumerate(handles):
         groups.setdefault((tuple(packed.shape), capm), []).append(i)
     fetched = [None] * len(handles)
     with trace.stage("dp.fetch"):
@@ -1049,7 +1106,7 @@ def _collect_v3(handles, dict_table, max_distance, base=0):
                 fetched[i] = host[j]
     all_m, all_l, all_d, all_f = [], [], [], []
     with trace.stage("dp.collect"):
-        for (lo, capm, packed, full, ev), hp in zip(handles, fetched):
+        for (lo, capm, packed, full, ev, h), hp in zip(handles, fetched):
             cnt = int(hp[0, 0])
             if cnt > capm:  # rare overflow: fetch the uncapped compaction
                 hostf = _to_u32([ev], [full[:, :cnt]])[0]
@@ -1061,11 +1118,19 @@ def _collect_v3(handles, dict_table, max_distance, base=0):
                 pos_c, pay_c = hp[0, 8:8 + cnt], hp[1, 8:8 + cnt]
             if cnt == 0:
                 continue
-            mm = pos_c.astype(np.int64) + lo
+            if h:  # the halo's matches
+                past = pos_c >= h
+                pos_c, pay_c = pos_c[past], pay_c[past]
+            mm = pos_c.astype(np.int64) + lo - h
             ml = (pay_c >> 25).astype(np.int64)
             md = (pay_c & np.uint32((1 << 25) - 1)).astype(np.int64)
             mf = np.zeros(len(mm), np.int64)
-            isd = md > np.minimum(mm + base, max_distance)
+            if hist is None:
+                isd = md > np.minimum(mm + base, max_distance)
+            else:
+                isd = md > mm + base + hist.size
+                md = np.where(isd, md - np.maximum(mm + base - max_distance,
+                                                   0), md)
             if isd.any() and len(dpos_g):
                 di = np.searchsorted(dpos_g, mm[isd])
                 di = np.minimum(di, len(dpos_g) - 1)
@@ -1244,9 +1309,121 @@ def _seed_parse(arr: np.ndarray, max_distance: int, base: int,
                                use_dict=False, device=device)
 
 
+@dataclasses.dataclass(frozen=True)
+class RawDictionary:
+    """A raw dictionary the stream is compressed with (RFC 9842's `dcb`,
+    upstream's `brotli -D FILE`), as the parse's history: `data` is the
+    dictionary's `size` bytes and then the input's. A copy whose
+    concatenated distance d reaches before stream position p (d > p)
+    reads the dictionary and is written as a compound reference at
+    distance min(p, maxback) + d - p (lift_compound)."""
+    data: np.ndarray
+    size: int
+
+
+def _halo(lo, hi, b, hist):
+    """The bytes before segment [lo, hi) that ride in its bucket's
+    padding as candidate history (the dcb route): as many whole DP
+    blocks of what precedes it, the dictionary's tail included, as the
+    padding holds, so the segment starts on a block and no match of the
+    halo runs into it. The scan runs over the whole bucket whether it
+    holds padding or history. 0 without a dictionary."""
+    if hist is None:
+        return 0
+    return min(b - (hi - lo), hist.size + lo) // B * B
+
+
+def _dict_head(n, hist):
+    """How much of the dictionary's tail the segments' halos reach."""
+    return max([_halo(lo, min(lo + SEG_V3, n),
+                      _bucket_v3(min(lo + SEG_V3, n) - lo), hist) - lo
+                for lo in range(0, n, SEG_V3)] + [0])
+
+
+def _seed_parse_dcb(hist, max_distance, seed_q):
+    """The dcb route's seed parse: the native matcher over the input
+    with the dictionary before it indexed as history (not parsed), its
+    window widened (up to lgwin 24) to reach back over both: positions
+    in the input's terms, distances concatenated (d > pos reads the
+    dictionary). A copy from the dictionary stops at its end; one within
+    the input past `max_distance` is dropped."""
+    D = hist.size
+    lgwin = min(max(int(len(hist.data) + 15).bit_length(), 10), 24)
+    p, l, d = native.find_matches(hist.data.tobytes(), seed_q, lgwin,
+                                  start=D)
+    m = p.astype(np.int64) - D
+    lens = l.astype(np.int64)
+    dists = d.astype(np.int64)
+    in_dict = dists > m
+    lens = np.where(in_dict, np.minimum(lens, dists - m), lens)
+    keep = (lens >= 4) & (in_dict | (dists <= max_distance))
+    return (m[keep], lens[keep], dists[keep],
+            np.zeros(int(keep.sum()), np.int64))
+
+
+def lift_compound(m, lens, dists, flags, D, maxback):
+    """The dcb route's final matches in the stream's terms: a copy whose
+    concatenated distance d reaches before its position p reads the raw
+    dictionary and becomes a compound reference (flag 1) at
+    min(p, maxback) + d - p, cut at the dictionary's end; what it
+    copied past that end continues as a copy from the input's start at
+    distance d (its position), where d is within maxback. A copy within
+    the input past maxback, and a piece shorter than 2, is left to
+    literals. Static words keep their stream distances.
+
+    With tracing on, counts `dcb.refs` (compound references),
+    `dcb.copy_bytes` (the input bytes they copy) and `dcb.far_bytes`
+    (those of references whose concatenated distance exceeds maxback:
+    the reach past the window)."""
+    src = m - dists
+    comp = (flags == 0) & (src < 0)
+    head = np.where(comp, np.minimum(lens, -src), lens)
+    ok = np.where(flags != 0, True,
+                  np.where(comp, head >= 2, dists <= maxback))
+    rest = comp & (lens - head >= 2) & (dists <= maxback)
+    if trace.enabled():
+        c = comp & ok
+        trace.count("dcb.refs", int(c.sum()))
+        trace.count("dcb.copy_bytes", int(head[c].sum()))
+        trace.count("dcb.far_bytes", int(head[c & (dists > maxback)].sum()))
+    sd = np.where(comp, dists - np.maximum(m - maxback, 0), dists)
+    kept = (m[ok], head[ok], sd[ok], np.where(comp, 1, flags)[ok])
+    # a rest starts at m + head = d, copying from the input's start
+    rests = (dists[rest], (lens - head)[rest], dists[rest],
+             np.zeros(int(rest.sum()), np.int64))
+    m, lens, dists, flags = (np.concatenate(x) for x in zip(kept, rests))
+    order = np.argsort(m, kind="stable")
+    return m[order], lens[order], dists[order], flags[order]
+
+
+def _bridge(arr, hist, m, lens, dists, flags):
+    """bridge_matches over the input, or with a dictionary over it and
+    the input laid end to end (its copies' sources lie before 0)."""
+    if hist is None:
+        return bridge_matches(arr, m, lens, dists, flags)
+    m, lens, dists, flags = bridge_matches(hist.data, m + hist.size, lens,
+                                           dists, flags)
+    return m - hist.size, lens, dists, flags
+
+
+def _finish(arr, m, lens, dists, flags, max_distance, base, hist,
+            active_from=0):
+    """The static-dictionary post-pass, and with a dictionary the lift
+    to compound references; static words past the compound region."""
+    D = 0 if hist is None else hist.size
+    with trace.stage("dp.dict-post"):
+        m, lens, dists, flags = add_dictionary_matches(
+            arr, m, lens, dists, flags, max_distance + D, base + D,
+            active_from=active_from)
+    if hist is None:
+        return m, lens, dists, flags
+    with trace.stage("dcb.lift"):
+        return lift_compound(m, lens, dists, flags, D, max_distance)
+
+
 def find_matches_optimal(data: np.ndarray, max_distance: int,
                          base: int = 0, on_block=None, mb_size=None,
-                         device=None, *, dp=None):
+                         device=None, *, dp=None, dictionary=None):
     """Device q10/q11 parse: native seed -> host cost tables -> device
     DP per segment -> coalesce + dictionary post-pass. `dp`: the
     DPConfig (None = DPConfig()); with iterations > 1, each later pass
@@ -1255,6 +1432,14 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
     v3 with one iteration dispatches the first segment early from a
     seed parse local to its window (cfg.fast_first), so the full-input
     seed and dictionary probe run while the card works on it.
+
+    `dictionary`: raw bytes the stream is compressed with (RFC 9842
+    `dcb`; v3 only, `base` 0). The DP parses the input's positions
+    alone, with the dictionary as history: the seed parse runs over
+    dictionary and input (_seed_parse_dcb), each segment's bucket
+    padding carries the bytes before it (_halo), and copies into the
+    dictionary come back as compound references (flag 1,
+    lift_compound); static words sit past the compound region.
 
     Streaming mode: with `on_block(mb_lo, mb_hi, matches)` set (and
     `mb_size`), finished metablock spans are emitted as soon as their
@@ -1266,11 +1451,25 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
     n = len(data)
     arr = np.asarray(data)
     v3 = cfg.mode == "v3"
+    hist = None
+    if dictionary is not None and len(dictionary):
+        if not v3 or base:
+            raise ValueError("a raw dictionary needs the v3 DP at the "
+                             "stream's start")
+        hist = RawDictionary(np.concatenate(
+            [np.frombuffer(bytes(dictionary), np.uint8), arr[:n]]),
+            len(dictionary))
     iterations = 1 if on_block is not None and not v3 else cfg.iterations
-    dev_big = upload_input(arr, n, dev) if v3 else None
+    dev_big = None
+    if hist is not None:
+        head = _dict_head(n, hist)
+        dev_big = upload_input(arr, n, dev,
+                               hist.data[hist.size - head:hist.size])
+    elif v3:
+        dev_big = upload_input(arr, n, dev)
     handles0 = None
     if (v3 and cfg.fast_first and n > SEG_V3 and base == 0 and
-            iterations == 1):
+            iterations == 1 and hist is None):
         with trace.stage("dp.seed1"):
             seed1 = _seed_parse(arr[:SEG_V3], max_distance, base, dev,
                                 cfg.seed_q)
@@ -1282,8 +1481,15 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
         handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance, tables1,
                                    [seed1], dev_big, cfg, base,
                                    dict_g=dict1)
-    with trace.stage("dp.seed"):
-        seed = _seed_parse(arr, max_distance, base, dev, cfg.seed_q)
+    dict_g = None
+    if hist is None:
+        with trace.stage("dp.seed"):
+            seed = _seed_parse(arr, max_distance, base, dev, cfg.seed_q)
+    else:
+        with trace.stage("dcb.seed"):
+            seed = _seed_parse_dcb(hist, max_distance, cfg.seed_q)
+        dict_g = _dict_probe_global(arr, [seed], hist.size,
+                                    max_distance + hist.size)
     m = lens = dists = flags = None
     for it in range(iterations):
         prev = seed if it == 0 else (m, lens, dists, flags)
@@ -1294,7 +1500,8 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
             early = handles0 is not None and it == 0
             handles, dict_table = _dispatch_v3(
                 arr, n, max_distance, tables, seeds_list, dev_big,
-                cfg, base, lo_start=SEG_V3 if early else 0)
+                cfg, base, dict_g=dict_g, lo_start=SEG_V3 if early else 0,
+                hist=hist)
             if early:
                 # merge segment 1 (dispatched early) + its dict
                 # probe's edges (flag recovery at collect needs
@@ -1318,10 +1525,10 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                 # only when mb_size divides SEG_V3; otherwise fall
                 # through to the full collect + one _emit_spans(0, n)
                 _stream_v3(arr, handles, dict_table, n, mb_size,
-                           max_distance, base, on_block)
+                           max_distance, base, on_block, hist)
                 return None
             all_m, all_l, all_d, all_f = _collect_v3(
-                handles, dict_table, max_distance, base)
+                handles, dict_table, max_distance, base, hist)
         else:
             handles = _dispatch_v1(arr, n, max_distance, tables,
                                    seeds_list, cfg, dev)
@@ -1342,20 +1549,18 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
             z = np.zeros(0, np.int64)
             if on_block is not None:
                 _emit_spans(arr, z, z, z, z, n, mb_size, max_distance,
-                            base, on_block)
+                            base, on_block, hist=hist)
                 return None
             return z, z, z, z
         with trace.stage("dp.collect"):
-            m, lens, dists, flags = bridge_matches(arr, *_coalesce(
+            m, lens, dists, flags = _bridge(arr, hist, *_coalesce(
                 np.concatenate(all_m), np.concatenate(all_l),
                 np.concatenate(all_d), np.concatenate(all_f)))
     if on_block is not None:
         _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
-                    base, on_block)
+                    base, on_block, hist=hist)
         return None
-    with trace.stage("dp.dict-post"):
-        return add_dictionary_matches(arr, m, lens, dists, flags,
-                                      max_distance, base)
+    return _finish(arr, m, lens, dists, flags, max_distance, base, hist)
 
 
 def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
@@ -1445,7 +1650,8 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
                     bits_tab, ctx_tab, copyq, distq, spos, slen, sdist,
                     dloc, dval, lo_k + s["base"], capm=capm, cfg=cfg,
                     icell_q=s["icell"])
-            handles[si].append((lo_k, capm, packed, full, fetch.mark(dev)))
+            handles[si].append((lo_k, capm, packed, full, fetch.mark(dev),
+                                0))
 
     out = []
     for si, s in enumerate(shards):
@@ -1470,12 +1676,12 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
 
 
 def _stream_v3(arr, handles, dict_table, n, mb_size, max_distance,
-               base, on_block):
+               base, on_block, hist=None):
     """Chunked streaming collect: fetch the first half of the segments
     and emit their spans (native serialization on the host worker)
     while the card still computes the second half. Segment boundaries
     are hard parse boundaries and mb_size divides SEG_V3, so each group
-    covers whole metablocks."""
+    covers whole metablocks. `hist`: find_matches_optimal's."""
     half = (len(handles) + 1) // 2
     z = np.zeros(0, np.int64)
     for group in (handles[:half], handles[half:]):
@@ -1484,22 +1690,23 @@ def _stream_v3(arr, handles, dict_table, n, mb_size, max_distance,
         glo = group[0][0]
         ghi = min(group[-1][0] + SEG_V3, n)
         am, al, ad, af = _collect_v3(group, dict_table, max_distance,
-                                     base)
+                                     base, hist)
         if am:
             with trace.stage("dp.collect"):
-                gm, gl, gd, gf = bridge_matches(arr, *_coalesce(
+                gm, gl, gd, gf = _bridge(arr, hist, *_coalesce(
                     np.concatenate(am), np.concatenate(al),
                     np.concatenate(ad), np.concatenate(af)))
         else:
             gm = gl = gd = gf = z
         _emit_spans(arr, gm, gl, gd, gf, n, mb_size, max_distance,
-                    base, on_block, lo=glo, hi=ghi)
+                    base, on_block, lo=glo, hi=ghi, hist=hist)
 
 
 def _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
-                base, on_block, lo=0, hi=None):
+                base, on_block, lo=0, hi=None, hist=None):
     """Emit the finished parse as metablock spans ([lo, hi) restricts
-    to one collected group's span range)."""
+    to one collected group's span range); each span's matches are final
+    after `_finish`."""
     pm, pl, pd, pf = m, lens, dists, flags
     emitted = lo
     if hi is None:
@@ -1513,9 +1720,7 @@ def _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
             bm, bl, bd, bf = pm[take], pl[take], pd[take], pf[take]
             pm, pl, pd, pf = (pm[~take], pl[~take], pd[~take],
                               pf[~take])
-        with trace.stage("dp.dict-post"):
-            bm, bl, bd, bf = add_dictionary_matches(
-                arr[:mb_hi], bm, bl, bd, bf, max_distance, base,
-                active_from=emitted)
+        bm, bl, bd, bf = _finish(arr[:mb_hi], bm, bl, bd, bf,
+                                 max_distance, base, hist, emitted)
         on_block(emitted, mb_hi, (bm, bl, bd, bf))
         emitted = mb_hi

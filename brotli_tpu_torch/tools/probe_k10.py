@@ -59,6 +59,9 @@ _ARGS = {
     "btt_edge_ranks_v1": [_P, _P, _P, _P, _I64, _INT, _INT, _P, _INT, _I64,
                           _I64, _P],
     "btt_edge_ranks": kernels._SIGNATURES["btt_edge_ranks"],
+    # before the stream's base (a raw dictionary's halo) was an argument
+    "btt_edge_ranks_nobase": kernels._SIGNATURES["btt_edge_ranks"][:-2] +
+    [_P],
     "btt_edge_rows": kernels._SIGNATURES["btt_edge_rows"],
     "btt_edge_keys": kernels._SIGNATURES["btt_edge_keys"],
 }
@@ -80,10 +83,17 @@ def _wide_keys(src: str, symbol: str) -> bool:
     return "long long* key" in head
 
 
+def _takes_base(src: str) -> bool:
+    """Does the source's btt_edge_ranks take the stream's base?"""
+    head = src[src.index('extern "C" int btt_edge_ranks('):]
+    return "long long base" in head[:head.index(")")]
+
+
 def _build(sources: dict) -> dict:
     """{name: (.cu text, symbol)} -> {name: (function, int64 keys?,
     btt_edge_rows or None)}, one nvcc each, all started together; prints
-    ptxas's report of each kernel."""
+    ptxas's report of each kernel. A two-launch K10 is called with the
+    stream's base 0 where its entry point takes one."""
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (text, _) in sources.items():
@@ -106,9 +116,13 @@ def _build(sources: dict) -> dict:
         lib = ctypes.CDLL(str(_OUT / f"lib{name}.so"))
         wide = _wide_keys(text, symbol)
         fn = getattr(lib, symbol)
-        fn.argtypes = _ARGS[symbol + ("_v1" if wide and symbol ==
-                                      "btt_edge_ranks" else "")]
+        k10 = symbol == "btt_edge_ranks"
+        fn.argtypes = _ARGS[symbol + (
+            "_v1" if wide and k10 else
+            "_nobase" if k10 and not _takes_base(text) else "")]
         fn.restype = ctypes.c_int
+        if k10 and not wide and _takes_base(text):
+            fn = (lambda f: lambda *a: f(*a[:-1], 0, a[-1]))(fn)
         rows = getattr(lib, "btt_edge_rows", None)
         if rows is not None:
             rows.argtypes, rows.restype = _ARGS["btt_edge_rows"], ctypes.c_int

@@ -9,8 +9,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      and K11 (the candidate edges and slot tables) on the first 4 MiB DP
      segment's real inputs (every level, the 16-byte one too) and on
      seeded cases (a tail-padded segment, npos 0 and n, all-zero bytes,
-     the small window, duplicate seed starts and dictionary hits, random
-     candidate words, the v1 layout), then the card's operations of one
+     the small window, K10 with a raw dictionary's tail in the bucket
+     (base -1 and -2 MiB, the second at the small window), duplicate
+     seed starts and dictionary hits, random candidate words, the v1
+     layout), then the card's operations of one
      dp_v3_segment call with the plain edges and with K9-K11 (at most
      100); K1, K3 and K4 on the real inputs of that segment,
      K1 and K4 also on seeded inputs at the same shapes (K4 also with
@@ -509,7 +511,8 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     its plain version on the card, on the first 4 MiB segment's real
     inputs (every level, the 16-byte one too) and on seeded cases: a
     tail-padded segment (3,000,001 live bytes of a 4 MiB bucket), npos
-    0 and n, all-zero bytes, the (1 << 10) - 16 window, duplicate seed
+    0 and n, all-zero bytes, the (1 << 10) - 16 window, K10 on a bucket
+    that starts in a raw dictionary's tail, duplicate seed
     starts and dictionary hits, random candidate words, the v1 layout;
     then each timed alone and beside its plain version, and the card's
     operations of one dp_v3_segment call with the plain edges and with
@@ -540,8 +543,9 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     zeros = torch.zeros_like(data)
     errs = {"K9": {}, "K10": {}, "K10b": {}, "K11": {}}
 
-    def cands(label, d, np_, window, lvls):
-        """K9, the sort and K10's level launch per level, then K10's row
+    def cands(label, d, np_, window, lvls, base=0):
+        """K9, the sort and K10's level launch per level (`base`: the
+        stream position of the bucket's first byte), then K10's row
         pass, on the card, each against its plain version on the same
         inputs; returns the kernels' table."""
         words = torch.empty((len(lvls), n, kernels.MAX_RANKS),
@@ -553,10 +557,10 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
                 key, OPT.edge_keys_plain(d, lnp, plen))
             key_s, order = torch.sort(key, stable=True)
             kernels.edge_ranks(key_s, order, d, lnp, window, ranks,
-                               words[lvl])
+                               words[lvl], base)
             want = torch.zeros_like(words[lvl])
             want[:, :len(ranks)] = OPT.edge_ranks_plain(key_s, order, d, lnp,
-                                                        window, ranks)
+                                                        window, ranks, base)
             errs["K10"][f"{label} {plen}"] = max_abs_err(words[lvl], want)
         nranks = [len(r) for _, r in lvls]
         cand = kernels.edge_rows(words, nranks)
@@ -599,6 +603,19 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     cw = cands("window", data, npos, small, OPT.LEVELS)
     slots("window", cw, data, small, distq, *seeds, bits_tab, **v3)
     del cw
+    # the bucket's first h bytes a raw dictionary's tail before the
+    # stream (the dcb route's halo, base -h): its sources are kept past
+    # the window, so the small window's table holds distances above it
+    for label, h, window in (("halo", 1 << 20, maxd),
+                             ("halo window", 2 << 20, small)):
+        ch = cands(label, data, npos, window, OPT.LEVELS, base=-h)
+        far = int(((ch & ((1 << 25) - 1)) > window).sum())
+        print(f"[3] K10 {label} (base -{h}): {far} candidates past the "
+              f"window", flush=True)
+        if window == small and not far:
+            sys.exit("chip_smoke: K10 kept no source in the dictionary "
+                     "past the window")
+        del ch
     ct = cands("tail", data_t, npos_t, maxd, levels)
     slots("tail", ct, data_t, maxd, distq, *rest_t[:3], bits_tab,
           ctx_tab=ctx_tab, dict_pos=rest_t[3], dict_pay=rest_t[4],
@@ -707,9 +724,10 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     seg_fn = lambda: OPT.dp_v3_segment(*args, capm=b // OPT.CAPM_DIV)
     swap = dict(
         edge_keys=OPT.edge_keys_plain,
-        edge_ranks=lambda ks, o, d, np_, w, r, words: words.copy_(
-            torch.nn.functional.pad(OPT.edge_ranks_plain(ks, o, d, np_, w, r),
-                                    (0, words.shape[1] - len(r)))),
+        edge_ranks=lambda ks, o, d, np_, w, r, words, base=0: words.copy_(
+            torch.nn.functional.pad(
+                OPT.edge_ranks_plain(ks, o, d, np_, w, r, base),
+                (0, words.shape[1] - len(r)))),
         edge_rows=OPT.edge_rows_plain,
         edge_slots=OPT.edge_slots_plain)
     keep = {k: getattr(OPT, k) for k in swap}

@@ -211,6 +211,51 @@ def test_extend_capped_counts_cap_hits_and_extensions(access_log_parse):
             (ref[1] >= 16) & (ref[3] == 0)))}
 
 
+def test_dcb_counters_sum_over_the_spans_of_a_request(monkeypatch):
+    """A dcb request of two spans (lgwin 16: 64 KiB metablocks over 120
+    KB of input, 100 KB of dictionary before it): dcb.refs,
+    dcb.copy_bytes and dcb.far_bytes are the sums over both spans' final
+    matches (compound references; those whose concatenated distance,
+    the stream's plus the position's excess over maxback, exceeds
+    maxback); with tracing off nothing is recorded."""
+    from brotli_tpu_torch import compress
+    from brotli_tpu_torch.enc import encoder as PE
+    from test_torch_dcb import dcb_pair
+    monkeypatch.setattr(O, "SEG_V3", 1 << 17)
+    monkeypatch.setattr(O, "BUCKETS_V3", [1 << 16, 1 << 17])
+    monkeypatch.setattr(PE, "MIN_DEVICE_INPUT", 1 << 15)
+    dic, doc = dcb_pair(2, 100_000, 120_000)
+    maxback = (1 << 16) - 16
+    spans = []
+    lift = O.lift_compound
+
+    def spy(*a):
+        spans.append(lift(*a))
+        return spans[-1]
+    monkeypatch.setattr(O, "lift_compound", spy)
+    compress(doc, quality=11, lgwin=16, dictionary=dic, encoder="device",
+             device="cpu")
+    assert len(spans) == 2
+    assert trace.counters() == {} and trace.spans() == []
+    first = spans[:]
+    spans.clear()
+    trace.enable()
+    compress(doc, quality=11, lgwin=16, dictionary=dic, encoder="device",
+             device="cpu")
+    assert [[a.tolist() for a in s] for s in spans] == \
+        [[a.tolist() for a in s] for s in first]
+    want = {"dcb.refs": 0, "dcb.copy_bytes": 0, "dcb.far_bytes": 0}
+    for m, lens, dists, flags in spans:
+        c = flags == 1
+        concat = dists + np.maximum(m - maxback, 0)
+        want["dcb.refs"] += int(c.sum())
+        want["dcb.copy_bytes"] += int(lens[c].sum())
+        want["dcb.far_bytes"] += int(lens[c & (concat > maxback)].sum())
+    assert trace.counters() == want
+    assert want["dcb.far_bytes"] > 0 and all((s[3] == 1).any()
+                                             for s in spans)
+
+
 def test_spans_lie_on_the_profilers_clock():
     """A span opened inside a record_function lies within that event's
     bounds, within 1 ms: both are stamped from time.time_ns()."""
