@@ -4,10 +4,12 @@ call (the seed parse, the static-dictionary probe and post-pass, the
 region serializer, package-merge code lengths, the device decoder's
 symbol parse). Copy of the ctypes bindings of brotli_tpu.native over
 verbatim copies of its C sources, plus the port's own cap-hit extension
-(btpu_extend.c), compound-reference serialization (btpu_compound.c) and
+(btpu_extend.c), compound-reference serialization (btpu_compound.c),
 the seed parse after a dictionary (btpu_history.c, which includes
-btpu_enc.c to reach its static matcher, so btpu_enc.c is compiled
-through it).
+btpu_enc.c to reach its static matcher) and the dictionary probe's
+tables for the card with its shared per-position code on the host
+(btpu_probe.c, which includes btpu_history.c to reach the dictionary
+index, so btpu_enc.c is compiled through both).
 
 The library is compiled with the system compiler into `_build/` at
 first use; it is never committed.
@@ -27,10 +29,14 @@ from ..utils import filelock
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _LIB = _DIR / "_build" / "libbtpu.so"
-# the files compiled; btpu_enc.c through btpu_history.c, which includes it
-_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_history.c",
+# the files compiled; btpu_enc.c through btpu_history.c, which includes
+# it, and that through btpu_probe.c, which includes it and K12's
+# per-position probe (csrc/dict_probe.h)
+_SRCS = (_DIR / "btpu_dec.c", _DIR / "btpu_probe.c",
          _DIR / "btpu_extend.c", _DIR / "btpu_compound.c")
-_DEPS = _SRCS + (_DIR / "btpu_enc.c", _DIR / "btpu_tables.h")
+_DEPS = _SRCS + (_DIR / "btpu_history.c", _DIR / "btpu_enc.c",
+                 _DIR / "btpu_tables.h",
+                 _DIR.parent / "csrc" / "dict_probe.h")
 
 _lib = None
 _lock = threading.Lock()
@@ -114,6 +120,20 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                 ctypes.POINTER(ctypes.c_size_t)]
             lib.btpu_dict_probe_all.restype = ctypes.c_int
+            lib.btpu_dict_index_export.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t]
+            lib.btpu_dict_index_export.restype = ctypes.c_size_t
+            lib.btpu_dict_probe_gated.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,
+                ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.btpu_dict_probe_gated.restype = ctypes.c_int
+            lib.btpu_probe_gates.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_void_p]
+            lib.btpu_probe_gates.restype = ctypes.c_size_t
             lib.btpu_pm_lengths.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
@@ -524,6 +544,64 @@ def dict_probe_all(data: bytes, mpos, mlen, base: int = 0,
     rc = lib.btpu_dict_probe_all(
         data, len(data), base, maxback, dictionary_data(), _ptr(mp),
         _ptr(ml), len(mp), _ptr(op), _ptr(pl), cap, ctypes.byref(cnt))
+    if rc != 0:
+        raise ValueError(_ENC_ERRORS.get(rc, f"probe error {rc}"))
+    k = cnt.value
+    return op[:k].copy(), pl[:k].copy()
+
+
+def dict_index_image() -> np.ndarray:
+    """The static-dictionary probe's tables as one uint8 image
+    (csrc/dict_probe.h's BttDictHead and the arrays at its offsets):
+    the buckets and forms dict_index_init builds, the transform pool and
+    the dictionary's bytes, for K12 on the card."""
+    lib = get_lib()
+    blob = dictionary_data()
+    size = lib.btpu_dict_index_export(blob, None, 0)
+    if not size:
+        raise ValueError("the dictionary index could not be built")
+    img = np.empty(size, np.uint8)
+    if lib.btpu_dict_index_export(blob, _ptr(img), size) != size:
+        raise ValueError("the dictionary index changed size")
+    return img
+
+
+def probe_gates(mpos, mlen) -> np.ndarray:
+    """The positions dict_probe_all's seed walk over the seeds (mpos,
+    mlen) skips, as a (2, k) uint32 array of sorted, disjoint intervals
+    [lo, hi) (btpu_probe_gates)."""
+    mp = np.ascontiguousarray(mpos, np.int64)
+    ml = np.ascontiguousarray(mlen, np.int64)
+    if len(mp) != len(ml):
+        raise ValueError("probe_gates: seeds of unequal length")
+    out = np.empty((2, len(mp)), np.uint32)
+    k = get_lib().btpu_probe_gates(_ptr(mp), _ptr(ml), len(mp),
+                                   _ptr(out[0]), _ptr(out[1]))
+    return np.ascontiguousarray(out[:, :k])
+
+
+def dict_probe_gated(data, gate_lo, gate_hi, base: int = 0,
+                     maxback: int = (1 << 22) - 16, image=None):
+    """dict_probe_all's contract, run by K12's per-position code
+    (csrc/dict_probe.h) in a host loop: `data` uint8 bytes, passed
+    without a copy when contiguous, and the seed gate as sorted,
+    disjoint uint32 intervals [gate_lo[i], gate_hi[i]) (probe_gates).
+    Returns (pos u32, payload u32); raises ValueError past the cap of
+    one hit per 8 bytes."""
+    lib = get_lib()
+    buf = np.ascontiguousarray(data, np.uint8)
+    lo = np.ascontiguousarray(gate_lo, np.uint32)
+    hi = np.ascontiguousarray(gate_hi, np.uint32)
+    if len(lo) != len(hi):
+        raise ValueError("dict_probe_gated: gates of unequal length")
+    img = dict_index_image() if image is None else image
+    cap = max(len(buf) // 8 + 64, 1024)
+    op = np.empty(cap, np.uint32)
+    pl = np.empty(cap, np.uint32)
+    cnt = ctypes.c_size_t()
+    rc = lib.btpu_dict_probe_gated(
+        _ptr(buf), len(buf), base, maxback, _ptr(img), _ptr(lo), _ptr(hi),
+        len(lo), _ptr(op), _ptr(pl), cap, ctypes.byref(cnt))
     if rc != 0:
         raise ValueError(_ENC_ERRORS.get(rc, f"probe error {rc}"))
     k = cnt.value

@@ -11,7 +11,8 @@
  *
  * The matcher's functions are static in btpu_enc.c, which stays a
  * verbatim copy: this file includes it, and the library compiles
- * btpu_enc.c through this file only (native/__init__._SRCS).
+ * btpu_enc.c through this file only, which btpu_probe.c includes in
+ * turn (native/__init__._SRCS).
  */
 
 #include "btpu_enc.c"

@@ -2,13 +2,15 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library
 with a plain C interface under `brotli_tpu_torch/_build/` at first use
-(all sources in parallel), and is bound with ctypes. A launch runs on
-PyTorch's current stream, allocates nothing itself, and the C side
-returns cudaGetLastError(); a non-zero code raises. LAUNCHES counts the
-launches of each kernel; SLOW holds the last K7 and K8 launch's int32
-(1,) count of the steps that took the kernel's slow path (K7: a step
-whose sums may wrap runs the exact slot loop; K8: a ring the look-ahead
-did not cover is compared on the chain), on the card, unread.
+(all sources in parallel; a source is stale when it or a header it
+includes, `HEADERS`, is newer than its library), and is bound with
+ctypes. A launch runs on PyTorch's current stream, allocates nothing
+itself, and the C side returns cudaGetLastError(); a non-zero code
+raises. LAUNCHES counts the launches of each kernel; SLOW holds the last
+K7 and K8 launch's int32 (1,) count of the steps that took the kernel's
+slow path (K7: a step whose sums may wrap runs the exact slot loop; K8:
+a ring the look-ahead did not cover is compared on the chain), on the
+card, unread.
 
 nvcc is looked up only when a kernel is first needed, so the package
 imports on machines without the CUDA toolkit.
@@ -30,7 +32,9 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 SOURCES = ("suffix_min", "dp_scan", "dp_backtrack", "chain_select",
            "bitpack", "lz_resolve", "dp_scan_v1", "dp_scan_ring",
-           "edge_keys", "edge_ranks", "edge_slots")
+           "edge_keys", "edge_ranks", "edge_slots", "dict_probe")
+# the csrc/ headers a source includes
+HEADERS = {"dict_probe": ("dict_probe.h",)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -48,11 +52,13 @@ CHAIN_S = 256       # its sub-chunk: the longest walk of one thread
 PACK_TILE = 4096    # bitpack.cu's fields per CTA
 PACK_TABLE = 2 * (256 + 704 + 64)  # its code table: code and length of
                                    # the literal, command, distance trees
+DICT_TILE = 2048    # dict_probe.cu's positions per CTA
 
 LAUNCHES = {"suffix_min": 0, "dp_scan": 0, "dp_backtrack": 0,
             "chain_select": 0, "bitpack": 0, "lz_resolve": 0,
             "dp_scan_v1": 0, "dp_scan_ring": 0, "edge_keys": 0,
-            "edge_ranks": 0, "edge_rows": 0, "edge_slots": 0}
+            "edge_ranks": 0, "edge_rows": 0, "edge_slots": 0,
+            "dict_probe": 0}
 SLOW = {"dp_scan_v1": None, "dp_scan_ring": None}
 
 _libs = {}
@@ -85,6 +91,9 @@ _SIGNATURES = {
                        ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, _P],
+    "btt_dict_probe": [_P, ctypes.c_longlong, ctypes.c_ulonglong,
+                       ctypes.c_ulonglong, _P, _P, ctypes.c_longlong, _P, _P,
+                       ctypes.c_longlong, _P],
 }
 
 
@@ -115,7 +124,8 @@ def build(extra_flags=()) -> dict:
         stale = [s for s in SOURCES
                  if not _lib_path(s).exists() or
                  _lib_path(s).stat().st_mtime <
-                 (_CSRC / f"{s}.cu").stat().st_mtime]
+                 max((_CSRC / f).stat().st_mtime
+                     for f in (f"{s}.cu",) + HEADERS.get(s, ()))]
         if not stale:
             return {}
         nvcc = _nvcc()
@@ -495,6 +505,40 @@ def edge_slots(cand, data, max_distance, dist_sym_bits_q, seed_pos,
             scratch.data_ptr(), n, ncand, int(max_distance), int(seg_base))
     _count("edge_slots")
     return pd_flat, cs_flat, litq, dist_fill
+
+
+def dict_probe(data, n, gates, base, max_distance, image):
+    """K12 on the card: the static-dictionary probe of the uint8 bytes
+    data[:n] (16-byte aligned) wherever no int32 gate interval
+    [gates[0, i], gates[1, i]) covers the position (sorted, disjoint:
+    native.probe_gates), over the uint8 table image
+    (native.dict_index_image, 16-byte aligned), as
+    native.dict_probe_all at `base` and `max_distance` -> int32 out
+    (2 + 2 cap,): out[0] the count of hits, out[2:2 + cap] their
+    positions and out[2 + cap:] their payloads in position order, both
+    written only when the count is at most cap = max(n // 8 + 64, 1024).
+    One C call: the probe, the scan of its tiles' counts, the ordered
+    scatter; one scratch allocation, n int32 rounded up to a tile and
+    two more a tile."""
+    _check(data, "data", 1, torch.uint8)
+    _check(gates, "gates", 2)
+    _check(image, "image", 1, torch.uint8)
+    if not 1 <= n <= data.shape[0] or n >= 1 << 31 or \
+            gates.shape[0] != 2 or data.data_ptr() % 16 or \
+            image.data_ptr() % 16 or base < 0 or max_distance < 0:
+        raise ValueError("dict_probe: bad shapes or arguments")
+    dev = data.device
+    cap = max(n // 8 + 64, 1024)
+    ntiles = -(-n // DICT_TILE)
+    scratch = torch.empty(ntiles * (DICT_TILE + 2), dtype=torch.int32,
+                          device=dev)
+    out = torch.empty(2 + 2 * cap, dtype=torch.int32, device=dev)
+    _launch("dict_probe", "btt_dict_probe", dev, data.data_ptr(), n,
+            int(base), int(max_distance), image.data_ptr(),
+            gates.data_ptr(), gates.shape[1], scratch.data_ptr(),
+            out.data_ptr(), cap)
+    _count("dict_probe")
+    return out
 
 
 def reset_launches() -> None:

@@ -43,6 +43,7 @@ optimal_jax.py; its environment variables are the fields of DPConfig.
 
 import concurrent.futures as futures
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -869,20 +870,80 @@ def _seg_seed_edges(seeds_list, lo, hi, cap):
             np.pad(sdist, (0, pad)))
 
 
-def _dict_probe_global(arr, seeds_list, base, max_distance):
-    """One native static-dictionary probe over the whole input
-    (seed-gated; ~1% of positions). Returns (positions, payloads,
-    word lengths). When the hits overflow the probe's output cap (one
-    per 8 bytes: text made of dictionary words), the probe fails and
-    the DP runs without dictionary edges, as in the JAX package."""
+def _probed(n, gates):
+    """The positions the probe of n bytes visits past the seed gate."""
+    top = max(n - 3, 0)
+    lo, hi = np.minimum(gates.astype(np.int64), top)
+    return top - int((hi - lo).sum())
+
+
+_DICT_IMAGE = {}
+_image_lock = threading.Lock()
+
+
+def dict_image(device):
+    """K12's table image (native.dict_index_image) on `device`,
+    uploaded on first use and kept for the process."""
+    key = str(torch.device(device))
+    with _image_lock:
+        img = _DICT_IMAGE.get(key)
+        if img is None:
+            img = _DICT_IMAGE[key] = torch.from_numpy(
+                native.dict_index_image()).to(device)
+    return img
+
+
+def _dict_probe_card(buf, n, gates, base, max_distance):
+    """K12 over buf[:n] on the card, one fetch of the count and the
+    hits: (positions, payloads) uint32, or None past the cap."""
+    dev = buf.device
+    g = torch.from_numpy(gates.view(np.int32)).to(dev)
+    out = kernels.dict_probe(buf, n, g, base, max_distance,
+                             dict_image(dev))
+    host = fetch.fetch_after([fetch.mark(dev)], [out])[0].numpy()
+    cnt, cap = int(host[0]), (len(host) - 2) // 2
+    if cnt > cap:
+        return None
+    hits = host.view(np.uint32)
+    return hits[2:2 + cnt].copy(), hits[2 + cap:2 + cap + cnt].copy()
+
+
+def _dict_probe_global(arr, seeds_list, base, max_distance, buf=None):
+    """One static-dictionary probe over the whole input `arr`
+    (seed-gated): K12 when `buf`, the input uploaded (its first len(arr)
+    bytes), is on the card, else the plain version with the same
+    contract, native.dict_probe_all. Returns (positions, payloads, word
+    lengths). When the hits overflow the probe's output cap (one per 8
+    bytes: text made of dictionary words), the probe fails and the DP
+    runs without dictionary edges, as in the JAX package. Counters:
+    dp.dict-probe.bytes (the input's bytes), .positions (probed past the
+    seed gate), .hits (kept) and .overflows (probes dropped by the
+    cap)."""
+    n = len(arr)
+    qm, ql = seeds_list[0][0], seeds_list[0][1]
+    gates = None
     with trace.stage("dp.dict-probe"):
-        qm, ql = seeds_list[0][0], seeds_list[0][1]
-        try:
-            dpos_g, dpay_g = native.dict_probe_all(
-                np.ascontiguousarray(arr).tobytes(), qm, ql, base,
-                max_distance)
-        except ValueError:
-            dpos_g = dpay_g = np.zeros(0, np.uint32)
+        if buf is not None and buf.device.type == "cuda":
+            gates = native.probe_gates(qm, ql)
+            hits = _dict_probe_card(buf, n, gates, base, max_distance)
+        else:
+            try:
+                hits = native.dict_probe_all(
+                    np.ascontiguousarray(arr).tobytes(), qm, ql, base,
+                    max_distance)
+            except ValueError:
+                hits = None
+    if trace.enabled():
+        if gates is None:
+            gates = native.probe_gates(qm, ql)
+        trace.count("dp.dict-probe.bytes", n)
+        trace.count("dp.dict-probe.positions", _probed(n, gates))
+        trace.count("dp.dict-probe.hits", 0 if hits is None else
+                    len(hits[0]))
+        trace.count("dp.dict-probe.overflows", int(hits is None))
+    if hits is None:
+        hits = (np.zeros(0, np.uint32),) * 2
+    dpos_g, dpay_g = hits
     dwlen_g = ((dpay_g >> 17) & 0x1F).astype(np.int64)
     return dpos_g, dpay_g, dwlen_g
 
@@ -977,9 +1038,10 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
     bits_tab, ctx_tab, copyq, distq = device_tables(tables, dev)
     icell_q = torch.from_numpy(tables[4].astype(np.int32)).to(dev) \
         if cfg.icell else None
-    if dict_g is None:
-        dict_g = _dict_probe_global(arr, seeds_list, base, max_distance)
     head = 0 if hist is None else _dict_head(n, hist)
+    if dict_g is None:
+        dict_g = _dict_probe_global(arr[:n], seeds_list, base,
+                                    max_distance, dev_big[head:])
     handles = []
     for lo in range(lo_start, n, SEG_V3):
         hi = min(lo + SEG_V3, n)
@@ -1477,7 +1539,7 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
             tables1 = _cost_tables(arr[:SEG_V3], seed1, lit_table=True,
                                    cfg=cfg)
         dict1 = _dict_probe_global(arr[:SEG_V3], [seed1], base,
-                                   max_distance)
+                                   max_distance, dev_big)
         handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance, tables1,
                                    [seed1], dev_big, cfg, base,
                                    dict_g=dict1)
@@ -1489,7 +1551,8 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
         with trace.stage("dcb.seed"):
             seed = _seed_parse_dcb(hist, max_distance, cfg.seed_q)
         dict_g = _dict_probe_global(arr, [seed], hist.size,
-                                    max_distance + hist.size)
+                                    max_distance + hist.size,
+                                    dev_big[head:])
     m = lens = dists = flags = None
     for it in range(iterations):
         prev = seed if it == 0 else (m, lens, dists, flags)
@@ -1614,7 +1677,12 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
                                    cfg.seed_q)
             with trace.stage("dp.cost-tables"):
                 tables = _cost_tables(buf, seed, lit_table=True, cfg=cfg)
-            dict_g = _dict_probe_global(buf, [seed], base, max_distance)
+            # the shard's segments are uploaded a round at a time, so
+            # the probe's input has an upload of its own
+            on_card = (upload_input(buf, len(buf), devs[si])
+                       if devs[si].type == "cuda" else None)
+            dict_g = _dict_probe_global(buf, [seed], base, max_distance,
+                                        on_card)
         return dict(lo=lo, hi=hi, h=h, buf=buf, base=base, seed=seed,
                     tables=tables, dict_g=dict_g)
 

@@ -14,7 +14,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      seed starts and dictionary hits, random candidate words, the v1
      layout), then the card's operations of one
      dp_v3_segment call with the plain edges and with K9-K11 (at most
-     100); K1, K3 and K4 on the real inputs of that segment,
+     100); K12 (the dictionary probe, through the DP's probe with the
+     input on the card) against native.dict_probe_all on the first
+     SEG_V3 bytes and on the whole 16 MiB, timed on the whole; K1, K3
+     and K4 on the real inputs of that segment,
      K1 and K4 also on seeded inputs at the same shapes (K4 also with
      a part-full last CTA and with rows off the 16-byte grid), K2 on the
      real skip vector of the q5 matcher's second 8 MiB segment (once,
@@ -755,6 +758,61 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     return ops_plain, ops
 
 
+def dict_probe_check(arr, maxd, rows, dev, card):
+    """Phase 3's K12 check: the DP's dictionary probe with the input on
+    the card (ops/optimal._dict_probe_global, which launches K12) bit
+    for bit against native.dict_probe_all, the host probe it replaces,
+    at the main path's two shapes: the first SEG_V3 bytes after their
+    own seed parse (the early first probe) and the whole input (the
+    second). Times K12 and the native probe on the whole input."""
+    import brotli_tpu_torch.ops.optimal as OPT
+    from brotli_tpu_torch import native
+    from brotli_tpu_torch.ops import kernels
+
+    def hits(got):
+        return (np.zeros(0, np.uint32),) * 2 if got is None else got[:2]
+
+    def err(got, want):
+        if len(got[0]) != len(want[0]):
+            return abs(len(got[0]) - len(want[0])) << 32
+        return max((int(np.abs(g.astype(np.int64) - w).max(initial=0))
+                    for g, w in zip(got, want)), default=0)
+
+    errs = {}
+    for n in (OPT.SEG_V3, len(arr)):
+        part = arr[:n]
+        seed = OPT._seed_parse(part, maxd, 0)
+        buf = OPT.upload_input(part, n, dev)
+        got = OPT._dict_probe_global(part, [seed], 0, maxd, buf)
+        t0 = time.perf_counter()
+        try:
+            want = native.dict_probe_all(part.tobytes(), seed[0], seed[1],
+                                         0, maxd)
+        except ValueError:
+            want = None
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs[n] = err(hits(got), hits(want))
+        print(f"[3] K12 dict_probe, n={n}: {len(got[0])} hits, native "
+              f"{len(hits(want)[0])} in {plain_ms:.1f} ms; max_abs_err "
+              f"{errs[n]} [{card}]", flush=True)
+    gates = torch.from_numpy(
+        native.probe_gates(seed[0], seed[1]).view(np.int32)).to(dev)
+    image = OPT.dict_image(dev)
+    k12 = lambda: kernels.dict_probe(buf, n, gates, 0, maxd, image)
+    rows["K12"] = dict(
+        name="dict_probe", route="cuda",
+        source="brotli_tpu_torch/csrc/dict_probe.cu",
+        replaces="brotli_tpu/native/btpu_enc.c:5804",
+        max_abs_err=max(errs.values()), n=n,
+        ms=cuda_ms(k12, 10), device_ms=cuda_ms(k12, 10, queued=True),
+        plain_ms=plain_ms,
+        # the input and the table image read once
+        nbytes=n + image.numel(),
+        # a position's gate search, hashes and bucket bounds: about 20
+        nops=n * 20)
+    del buf, gates
+
+
 def device_ops(fn, show=False):
     """The card's operations (kernels, copies, memsets) of one call of
     fn after a warm-up (torch.profiler), and how many were kernels; with
@@ -777,13 +835,18 @@ def device_ops(fn, show=False):
     return len(names), len(kern)
 
 
-def dp_launches(nseg, scan="dp_scan", nlevels=2):
+def dp_launches(nseg, scan="dp_scan", nlevels=2, probes=0):
     """The kernel launches of `nseg` v3 DP segments: K9 and K10's level
     launch once a level, K10's row pass, K11, K1, the scan and K4 once a
-    segment."""
-    return {"edge_keys": nlevels * nseg, "edge_ranks": nlevels * nseg,
+    segment; and K12 once a dictionary probe (`probes`: one a
+    find_matches_optimal call, two when it dispatches its first segment
+    early, one a shard on the mesh)."""
+    want = {"edge_keys": nlevels * nseg, "edge_ranks": nlevels * nseg,
             "edge_rows": nseg, "edge_slots": nseg, "suffix_min": nseg,
             scan: nseg, "dp_backtrack": nseg}
+    if probes:
+        want["dict_probe"] = probes
+    return want
 
 
 def bound(nbytes, nops):
@@ -1128,9 +1191,9 @@ def public_surface(corpus, q11_out, q5_out, card):
     native_q11 = item("compress q11, 4 MiB, encoder='native'",
                       lambda: bt.compress(part, quality=11,
                                           encoder="native"), len(part))
-    if any(launches[k] != v for k, v in dp_launches(1).items()):
+    if any(launches[k] != v for k, v in dp_launches(1, probes=1).items()):
         sys.exit(f"chip_smoke: the card's q11 route launched {launches}, "
-                 f"not {dp_launches(1)}")
+                 f"not {dp_launches(1, probes=1)}")
     if on_card == native_q11:
         sys.exit("chip_smoke: the card's and the native q11 streams agree")
     if bt.decompress(on_card) != part or bt.decompress(native_q11) != part:
@@ -1559,7 +1622,7 @@ def mesh_and_processes(corpus, q5_out, card, dev=torch.device("cuda")):
         if bt.decompress(out) != corpus:
             sys.exit(f"chip_smoke: the q11 mesh ({label}) stream does not "
                      f"decode")
-        if launched != dict(dp_launches(nseg, scan),
+        if launched != dict(dp_launches(nseg, scan, probes=4),
                             chain_select=want_k2):
             sys.exit(f"chip_smoke: the q11 mesh ({label}) launched "
                      f"{launched}")
@@ -1695,7 +1758,7 @@ def python_serializer_and_decoder(corpus, q5_out, q11_4mib, card,
         "compress(q11, mode 1, encoder='device')",
         lambda: bt.compress(part, mode=1, quality=11, encoder="device",
                             device=dev),
-        dp_launches(nseg))
+        dp_launches(nseg, probes=1))
     print(f"    compress q11 mode 1, encoder='device', 4 MiB: {len(part)} "
           f"B -> {len(out11)} B in {wall:.3f} s = "
           f"{len(part) / wall / 1e6:.3f} MB/s [{card}]; launches {got}; "
@@ -1855,7 +1918,7 @@ def host_pipeline_routes(corpus, card, dev=torch.device("cuda"),
         "Compressor(q11, mode 1)",
         lambda: fed(bt.Compressor(quality=11, mode=1, device=dev), part,
                     mib),
-        dp_launches(nseg))
+        dp_launches(nseg, probes=4))
     check_flushed("Compressor(q11, mode 1)", got, part)
     print(f"    Compressor q11 mode 1, {len(part)} B in {mib} B pieces, "
           f"flushed: "
@@ -2053,7 +2116,7 @@ def _last_slice(corpus, card, dev, trials, cpu_run, tmp):
                for i in range(n))
     # K2: a block a device, a q5 shard, a q11 seed after the first shard
     # (each buffer one matcher segment)
-    want = dict(dp_launches(nseg), chain_select=3 * n - 1)
+    want = dict(dp_launches(nseg, probes=n), chain_select=3 * n - 1)
     print(f"[16] entry.dryrun_multichip({n}) over [cuda:0] * {n}",
           flush=True)
     kernels.reset_launches()
@@ -2132,6 +2195,7 @@ def main():
     rows = {}
     seg_ops = edge_kernels(arr, seg, maxd, rows, dev, card)
     torch.cuda.empty_cache()
+    dict_probe_check(arr, maxd, rows, dev, card)
     seed = OPT._seed_parse(seg, maxd, 0)
     tables = OPT._cost_tables(seg, seed, lit_table=True, cfg=OPT.DPConfig())
     dict_g = OPT._dict_probe_global(seg, [seed], 0, maxd)
@@ -2309,7 +2373,8 @@ def main():
         print(f"    {k} {r['name']}: kernel {r['ms']:.3f} ms one call "
               f"(the card alone {r['device_ms']:.3f} ms), plain "
               f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}) at n={nk if k == 'K2' else n} [{card}]")
+              f"({r['bound_by']}) at n="
+              f"{nk if k == 'K2' else r.pop('n', n)} [{card}]")
     mhz = float(smi("clocks.max.sm").split()[0])
     print(f"    K4 dp_backtrack: bound by bytes "
           f"({rows['K4']['bound_ms']:.3f} ms); its dependent steps: 5 "
@@ -2339,7 +2404,7 @@ def main():
         lambda: bt.compress(corpus, quality=11), trace, kernels, "q11",
         corpus, bt.decompress, card)
     nseg4 = launches["suffix_min"]
-    want4 = dp_launches(nseg4)
+    want4 = dp_launches(nseg4, probes=2)
     if nseg4 == 0 or any(launches[k] != v for k, v in want4.items()):
         sys.exit(f"chip_smoke: the q11 path launched {launches}, not "
                  f"{want4}")
@@ -2429,7 +2494,7 @@ def main():
                          dp_scan_ring=launches_ring["dp_scan_ring"])
     kern = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10", "K10b", "K11"):
+                "K10", "K10b", "K11", "K12"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],

@@ -494,12 +494,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.edge_slots(cand, data, 1 << 20,
                            torch.zeros(64, dtype=torch.int32), *seeds,
                            torch.zeros(1 << 16, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.dict_probe(data, 4096, torch.zeros((2, 0), dtype=torch.int32),
+                           0, 1 << 20, torch.zeros(16, dtype=torch.uint8))
     assert kernels.LAUNCHES == {"suffix_min": 0, "dp_scan": 0,
                                 "dp_backtrack": 0, "chain_select": 0,
                                 "bitpack": 0, "lz_resolve": 0,
                                 "dp_scan_v1": 0, "dp_scan_ring": 0,
                                 "edge_keys": 0, "edge_ranks": 0,
-                                "edge_rows": 0, "edge_slots": 0}
+                                "edge_rows": 0, "edge_slots": 0,
+                                "dict_probe": 0}
 
 
 def test_import_isolation():

@@ -251,7 +251,16 @@ def test_dcb_counters_sum_over_the_spans_of_a_request(monkeypatch):
         want["dcb.refs"] += int(c.sum())
         want["dcb.copy_bytes"] += int(lens[c].sum())
         want["dcb.far_bytes"] += int(lens[c & (concat > maxback)].sum())
-    assert trace.counters() == want
+    got = trace.counters()
+    assert {k: v for k, v in got.items() if k.startswith("dcb.")} == want
+    # and the request's one dictionary probe (ops/optimal)
+    assert set(got) - set(want) == {"dp.dict-probe.bytes",
+                                    "dp.dict-probe.positions",
+                                    "dp.dict-probe.hits",
+                                    "dp.dict-probe.overflows"}
+    assert got["dp.dict-probe.overflows"] == 0
+    assert got["dp.dict-probe.bytes"] == len(doc)
+    assert 0 < got["dp.dict-probe.positions"] <= len(doc) - 3
     assert want["dcb.far_bytes"] > 0 and all((s[3] == 1).any()
                                              for s in spans)
 
