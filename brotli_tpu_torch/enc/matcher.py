@@ -406,35 +406,6 @@ def split_matches_at(m, lens, dists, flags, boundaries):
     return m, lens, dists, flags
 
 
-def _batch_match_len(data, pos, cand, valid, cap, chunk=32):
-    """Vectorized LCP of data[pos:] vs data[cand:], capped at `cap`."""
-    n = len(data)
-    npos = len(pos)
-    mlen = np.zeros(npos, np.int64)
-    active = valid.copy()
-    offset = 0
-    d64 = data
-    while offset < cap and active.any():
-        idx = np.flatnonzero(active)
-        p = pos[idx] + offset
-        c = cand[idx] + offset
-        # stay in bounds: compare up to `chunk` bytes
-        max_here = np.minimum(n - p, chunk)
-        span = np.arange(chunk)
-        pa = np.minimum(p[:, None] + span, n - 1)
-        ca = np.minimum(c[:, None] + span, n - 1)
-        eq = d64[pa] == d64[ca]
-        eq &= span < max_here[:, None]
-        # first mismatch within the chunk
-        any_neq = ~eq.all(axis=1)
-        first = np.where(any_neq, np.argmin(eq, axis=1), max_here)
-        mlen[idx] += first
-        full = (first == chunk) & (max_here == chunk)
-        active[idx] = full
-        offset += chunk
-    return np.minimum(mlen, cap)
-
-
 def find_matches_greedy(data: np.ndarray, max_distance: int,
                         hash_bits: int = 17, min_quality_len: int = 4):
     """Greedy single-probe serial matcher (simple oracle for tests).

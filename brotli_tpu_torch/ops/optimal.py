@@ -37,8 +37,10 @@ the JAX code used uint32 lanes, see utils/u32.py), so both are bit
 equal to the JAX package.
 
 The host side -- the native seed parse, cost tables, dictionary probe,
-segment prep, collect and span emission -- is copied from
-optimal_jax.py; its environment variables are the fields of DPConfig.
+segment prep, collect and span emission -- gives optimal_jax.py's
+bytes, with one collect a handle shape, one span emitter
+(_emit_spans) and one batch tail (_batch_tail) for every route; its
+environment variables are the fields of DPConfig.
 """
 
 import concurrent.futures as futures
@@ -842,7 +844,7 @@ def dp_v1_segment(data, npos, max_distance, litbits_q, copyq,
 
 
 # ---------------------------------------------------------------------
-# host side (copied from optimal_jax.py)
+# host side (optimal_jax.py's, same bytes)
 # ---------------------------------------------------------------------
 
 def _seg_seed_edges(seeds_list, lo, hi, cap):
@@ -1021,21 +1023,40 @@ def segment_inputs(arr, seeds_list, dict_g, lo, hi, b, device, halo=0):
             torch.from_numpy(a.astype(np.int64)).to(device) for a in rest)
 
 
+def _queue_v3(seg, arr, seeds_list, dict_g, lo, hi, h, dtabs, icell_q,
+              max_distance, seg_base, cfg, **kw):
+    """Queue the DP of segment [lo, hi) on the card without waiting for
+    it: `seg` is its bucket on the device (the segment `h` bytes in,
+    then padding or what follows it), `dtabs` device_tables', the small
+    inputs built here, `kw` dp_v3_segment's other keywords. Returns the
+    v3 handle (lo, capm, packed, full, event, h); the event is recorded
+    when the work is queued."""
+    dev = seg.device
+    b = seg.shape[0]
+    capm = b // CAPM_DIV
+    npos, spos, slen, sdist, dloc, dval = segment_inputs(
+        arr, seeds_list, dict_g, lo, hi, b, dev, h)
+    with trace.stage("dp.dispatch"):
+        packed, full = dp_v3_segment(
+            seg, npos, max_distance, *dtabs, spos, slen, sdist, dloc, dval,
+            seg_base, capm=capm, cfg=cfg, icell_q=icell_q, **kw)
+    return lo, capm, packed, full, fetch.mark(dev), h
+
+
 def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
                  base=0, dict_g=None, lo_start=0, hist=None):
-    """Run every segment's DP from `lo_start` (device work is queued
-    asynchronously; nothing waits for it here; each segment records an
-    event when queued, which its collect waits on). Returns (handles,
-    dict_table): dict_table = (global hit positions, word lengths) for
-    flag recovery at collect time. `dict_g`: an already computed
-    _dict_probe_global result.
+    """Queue every segment's DP from `lo_start` (_queue_v3, each a slice
+    of the one upload `dev_big`). Returns (handles, dict_table):
+    dict_table = (global hit positions, word lengths) for flag recovery
+    at collect time. `dict_g`: an already computed _dict_probe_global
+    result.
 
     `hist` (a RawDictionary): `dev_big` holds its tail before the input
     (upload_input's head), and each segment's buffer starts `_halo`
     bytes before the segment, the DP running in the concatenated
     distances of dp_v3_segment's `dict_len`."""
     dev = dev_big.device
-    bits_tab, ctx_tab, copyq, distq = device_tables(tables, dev)
+    dtabs = device_tables(tables, dev)
     icell_q = torch.from_numpy(tables[4].astype(np.int32)).to(dev) \
         if cfg.icell else None
     head = 0 if hist is None else _dict_head(n, hist)
@@ -1046,21 +1067,32 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
     for lo in range(lo_start, n, SEG_V3):
         hi = min(lo + SEG_V3, n)
         b = _bucket_v3(hi - lo)
-        capm = b // CAPM_DIV
         h = _halo(lo, hi, b, hist)
-        npos, spos, slen, sdist, dloc, dval = segment_inputs(
-            arr, seeds_list, dict_g, lo, hi, b, dev, h)
         seg = (_slice_seg(dev_big, lo, b) if hist is None else
                dev_big[head + lo - h:head + lo - h + b])
-        with trace.stage("dp.dispatch"):
-            packed, full = dp_v3_segment(
-                seg, npos, max_distance, bits_tab, ctx_tab, copyq, distq,
-                spos, slen, sdist, dloc, dval, lo + base - h, capm=capm,
-                cfg=cfg, icell_q=icell_q,
-                dict_len=0 if hist is None else hist.size)
-        handles.append((lo, capm, packed, full, fetch.mark(dev), h))
+        handles.append(_queue_v3(
+            seg, arr, seeds_list, dict_g, lo, hi, h, dtabs, icell_q,
+            max_distance, lo + base - h, cfg,
+            dict_len=0 if hist is None else hist.size))
     dpos_g, _, dwlen_g = dict_g
     return handles, (dpos_g.astype(np.int64), dwlen_g)
+
+
+def _merge_probes(dict1, dict_table):
+    """The collect's probe table when the first segment was dispatched
+    early from a probe of its own (`dict1`, a _dict_probe_global
+    result): every position either probe selected, once, in order."""
+    dp0, _, dw0 = dict1
+    dpos_g, dwlen_g = dict_table
+    with trace.stage("dp.collect"):
+        mp = np.concatenate([dp0.astype(np.int64), dpos_g])
+        mw = np.concatenate([dw0, dwlen_g])
+        order = np.argsort(mp, kind="stable")
+        mp, mw = mp[order], mw[order]
+        if len(mp):
+            keep = np.concatenate([[True], np.diff(mp) != 0])
+            mp, mw = mp[keep], mw[keep]
+    return mp, mw
 
 
 def _dispatch_v1(arr, n, max_distance, tables, seeds_list, cfg, dev):
@@ -1086,55 +1118,25 @@ def _dispatch_v1(arr, n, max_distance, tables, seeds_list, cfg, dev):
     return handles
 
 
-def _collect_segment(lo, count, out, ev):
-    """Read back one v1 segment's compacted matches: the count, then
-    2^ceil(log2 count) entries (at least 1,024)."""
-    cnt = int(fetch.fetch_after([ev], [count.reshape(1)])[0])
-    z = np.zeros(0, np.int64)
-    if cnt == 0:
-        return z, z, z
-    k = min(1 << max(int(np.ceil(np.log2(cnt))), 10), out.shape[1])
-    host = _to_u32([ev], [out[:, :k]])[0]
-    pay = host[1, :cnt]
-    return (host[0, :cnt].astype(np.int64) + lo,
-            (pay >> 25).astype(np.int64),
-            (pay & np.uint32(MASK25)).astype(np.int64))
-
-
-def _stream_blocks(arr, handles, n, mb_size, max_distance, base,
-                   on_block):
-    """v1 streaming: collect segments in order, emitting each finished
-    metablock span to `on_block` while later segments compute on the
-    card. Matches crossing a span boundary split here; the dictionary
-    post-pass runs per span."""
-    z = np.zeros(0, np.int64)
-    pm, pl, pd = z, z, z    # pending matches (coalesced)
-    emitted = 0
-    for lo, count, out, ev in handles:
-        with trace.stage("dp.fetch"):
-            mm, ml, md = _collect_segment(lo, count, out, ev)
-        covered = min(lo + SEG, n)
-        if len(mm):
-            with trace.stage("dp.collect"):
-                pm, pl, pd, _ = bridge_matches(arr, *_coalesce(
-                    np.concatenate([pm, mm]), np.concatenate([pl, ml]),
-                    np.concatenate([pd, md]), np.zeros(len(pm) + len(mm),
-                                                       np.int64)))
-        while emitted < n:
-            mb_hi = min(emitted + mb_size, n)
-            if covered < mb_hi:
-                break
-            pm, pl, pd, _ = split_matches_at(
-                pm, pl, pd, np.zeros(len(pm), np.int64), [mb_hi, n + 1])
-            take = pm < mb_hi
-            bm, bl, bd = pm[take], pl[take], pd[take]
-            pm, pl, pd = pm[~take], pl[~take], pd[~take]
-            with trace.stage("dp.dict-post"):
-                bm, bl, bd, bf = add_dictionary_matches(
-                    arr[:mb_hi], bm, bl, bd, np.zeros(len(bm), np.int64),
-                    max_distance, base, active_from=emitted)
-            on_block(emitted, mb_hi, (bm, bl, bd, bf))
-            emitted = mb_hi
+def _collect_v1(handles):
+    """Read back v1 segments' compacted matches, each the count, then
+    2^ceil(log2 count) entries (at least 1,024): lists of (positions,
+    lengths, distances, flags), one entry a segment with matches, flags
+    all 0."""
+    all_m, all_l, all_d, all_f = [], [], [], []
+    with trace.stage("dp.fetch"):
+        for lo, count, out, ev in handles:
+            cnt = int(fetch.fetch_after([ev], [count.reshape(1)])[0])
+            if cnt == 0:
+                continue
+            k = min(1 << max(int(np.ceil(np.log2(cnt))), 10), out.shape[1])
+            host = _to_u32([ev], [out[:, :k]])[0]
+            pay = host[1, :cnt]
+            all_m.append(host[0, :cnt].astype(np.int64) + lo)
+            all_l.append((pay >> 25).astype(np.int64))
+            all_d.append((pay & np.uint32(MASK25)).astype(np.int64))
+            all_f.append(np.zeros(cnt, np.int64))
+    return all_m, all_l, all_d, all_f
 
 
 def _to_u32(events, tensors):
@@ -1153,7 +1155,10 @@ def _collect_v3(handles, dict_table, max_distance, base=0, hist=None):
     With `hist` (the dcb route) a segment's matches in its halo are
     dropped, the copies keep their concatenated distances, and a static
     word is what lies past its concatenated position; its distance
-    becomes the stream's, min(pos, max_distance) + D + 1 + offset."""
+    becomes the stream's, min(pos, max_distance) + D + 1 + offset.
+
+    Returns lists of (positions, lengths, distances, flags) in input
+    coordinates, one entry a segment with matches, as _collect_v1."""
     dpos_g, dwlen_g = dict_table
     groups = {}
     for i, (_lo, capm, packed, _full, _ev, _h) in enumerate(handles):
@@ -1483,6 +1488,59 @@ def _finish(arr, m, lens, dists, flags, max_distance, base, hist,
         return lift_compound(m, lens, dists, flags, D, max_distance)
 
 
+def _join(arr, hist, parts, pend=None):
+    """Coalesce a collect's matches (`parts`, the lists it returns),
+    after `pend`'s where given, and bridge them (_bridge). None when it
+    collected no segment with matches."""
+    if not parts[0]:
+        return None
+    if pend is not None:
+        parts = [[p, *q] for p, q in zip(pend, parts)]
+    with trace.stage("dp.collect"):
+        return _bridge(arr, hist, *_coalesce(
+            *(np.concatenate(q) for q in parts)))
+
+
+def _batch_tail(arr, parts, max_distance, base, hist=None):
+    """The parse of a whole collect: its matches joined (_join), then
+    _finish. A parse without matches gets no post-pass, as in the JAX
+    package."""
+    joined = _join(arr, hist, parts)
+    if joined is None:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z
+    return _finish(arr, *joined, max_distance, base, hist)
+
+
+def _emit_spans(arr, groups, collect, seg, mb_size, max_distance, base,
+                on_block, hist=None):
+    """The streamed parse: collect the groups of `seg`-byte segments'
+    handles in order, and after each join its matches to those carried
+    from a span not yet emitted (_join), then pass `on_block` every
+    metablock span the collected prefix covers while the card computes
+    the later groups. A span's matches are split at its end (what
+    crosses it is carried) and final after `_finish`."""
+    n = len(arr)
+    pend = (np.zeros(0, np.int64),) * 4
+    emitted = 0
+    for group in groups:
+        joined = _join(arr, hist, collect(group), pend)
+        if joined is not None:
+            pend = joined
+        covered = min(group[-1][0] + seg, n)
+        while emitted < n and min(emitted + mb_size, n) <= covered:
+            mb_hi = min(emitted + mb_size, n)
+            with trace.stage("dp.span-split"):
+                pm, pl, pd, pf = split_matches_at(*pend, [mb_hi, n + 1])
+                take = pm < mb_hi
+                span = (pm[take], pl[take], pd[take], pf[take])
+                pend = (pm[~take], pl[~take], pd[~take], pf[~take])
+            on_block(emitted, mb_hi, _finish(arr[:mb_hi], *span,
+                                             max_distance, base, hist,
+                                             emitted))
+            emitted = mb_hi
+
+
 def find_matches_optimal(data: np.ndarray, max_distance: int,
                          base: int = 0, on_block=None, mb_size=None,
                          device=None, *, dp=None, dictionary=None):
@@ -1505,9 +1563,10 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
 
     Streaming mode: with `on_block(mb_lo, mb_hi, matches)` set (and
     `mb_size`), finished metablock spans are emitted as soon as their
-    segments are collected (v1 then runs one iteration). Returns None
-    in that mode, else the (pos, len, dist, flag) int64 match
-    arrays."""
+    segments are collected (_emit_spans): v1 a segment at a time, with
+    one iteration; v3 in two halves when mb_size divides SEG_V3, else
+    all at once. Returns None in that mode, else the (pos, len, dist,
+    flag) int64 match arrays."""
     cfg = DPConfig() if dp is None else dp
     dev = resolve(device)
     n = len(data)
@@ -1529,7 +1588,7 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                                hist.data[hist.size - head:hist.size])
     elif v3:
         dev_big = upload_input(arr, n, dev)
-    handles0 = None
+    early = None  # (the first segment's handles, its probe)
     if (v3 and cfg.fast_first and n > SEG_V3 and base == 0 and
             iterations == 1 and hist is None):
         with trace.stage("dp.seed1"):
@@ -1540,9 +1599,8 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                                    cfg=cfg)
         dict1 = _dict_probe_global(arr[:SEG_V3], [seed1], base,
                                    max_distance, dev_big)
-        handles0, _ = _dispatch_v3(arr, SEG_V3, max_distance, tables1,
-                                   [seed1], dev_big, cfg, base,
-                                   dict_g=dict1)
+        early = (_dispatch_v3(arr, SEG_V3, max_distance, tables1, [seed1],
+                              dev_big, cfg, base, dict_g=dict1)[0], dict1)
     dict_g = None
     if hist is None:
         with trace.stage("dp.seed"):
@@ -1553,77 +1611,43 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
         dict_g = _dict_probe_global(arr, [seed], hist.size,
                                     max_distance + hist.size,
                                     dev_big[head:])
-    m = lens = dists = flags = None
+
+    def collect(group):  # reads the dict_table of the last dispatch
+        if v3:
+            return _collect_v3(group, dict_table, max_distance, base, hist)
+        return _collect_v1(group)
+
+    prev = seed
     for it in range(iterations):
-        prev = seed if it == 0 else (m, lens, dists, flags)
         with trace.stage("dp.cost-tables"):
             tables = _cost_tables(arr, prev, lit_table=v3, cfg=cfg)
         seeds_list = [seed] if it == 0 else [seed, prev]
         if v3:
-            early = handles0 is not None and it == 0
             handles, dict_table = _dispatch_v3(
-                arr, n, max_distance, tables, seeds_list, dev_big,
-                cfg, base, dict_g=dict_g, lo_start=SEG_V3 if early else 0,
+                arr, n, max_distance, tables, seeds_list, dev_big, cfg,
+                base, dict_g=dict_g, lo_start=SEG_V3 if early else 0,
                 hist=hist)
-            if early:
-                # merge segment 1 (dispatched early) + its dict
-                # probe's edges (flag recovery at collect needs
-                # every position either probe selected)
-                handles = handles0 + handles
-                with trace.stage("dp.collect"):
-                    dp0, _, dw0 = dict1
-                    dpos_g, dwlen_g = dict_table
-                    mp = np.concatenate([dp0.astype(np.int64), dpos_g])
-                    mw = np.concatenate([dw0, dwlen_g])
-                    order = np.argsort(mp, kind="stable")
-                    mp, mw = mp[order], mw[order]
-                    if len(mp):
-                        keep = np.concatenate([[True], np.diff(mp) != 0])
-                        mp, mw = mp[keep], mw[keep]
-                    dict_table = (mp, mw)
-            if (on_block is not None and it == iterations - 1 and
-                    SEG_V3 % mb_size == 0):
-                # stream: emit the first half's spans while the card
-                # computes the rest. Groups cover whole metablocks
-                # only when mb_size divides SEG_V3; otherwise fall
-                # through to the full collect + one _emit_spans(0, n)
-                _stream_v3(arr, handles, dict_table, n, mb_size,
-                           max_distance, base, on_block, hist)
-                return None
-            all_m, all_l, all_d, all_f = _collect_v3(
-                handles, dict_table, max_distance, base, hist)
         else:
             handles = _dispatch_v1(arr, n, max_distance, tables,
                                    seeds_list, cfg, dev)
-            if on_block is not None:
-                _stream_blocks(arr, handles, n, mb_size, max_distance,
-                               base, on_block)
-                return None
-            all_m, all_l, all_d, all_f = [], [], [], []
-            with trace.stage("dp.fetch"):
-                for h in handles:
-                    mm, ml, md = _collect_segment(*h)
-                    if len(mm):
-                        all_m.append(mm)
-                        all_l.append(ml)
-                        all_d.append(md)
-                        all_f.append(np.zeros(len(mm), np.int64))
-        if not all_m:
-            z = np.zeros(0, np.int64)
-            if on_block is not None:
-                _emit_spans(arr, z, z, z, z, n, mb_size, max_distance,
-                            base, on_block, hist=hist)
-                return None
-            return z, z, z, z
-        with trace.stage("dp.collect"):
-            m, lens, dists, flags = _bridge(arr, hist, *_coalesce(
-                np.concatenate(all_m), np.concatenate(all_l),
-                np.concatenate(all_d), np.concatenate(all_f)))
-    if on_block is not None:
-        _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
-                    base, on_block, hist=hist)
-        return None
-    return _finish(arr, m, lens, dists, flags, max_distance, base, hist)
+        if it + 1 < iterations:
+            prev = _join(arr, hist, collect(handles))
+            if prev is None:  # no match to price the next pass with:
+                break         # the tail collects this one again
+    if early is not None:
+        handles = early[0] + handles
+        dict_table = _merge_probes(early[1], dict_table)
+    if on_block is None:
+        return _batch_tail(arr, collect(handles), max_distance, base, hist)
+    # v1: a segment a group; v3: two halves when whole metablocks fill
+    # them, else one group
+    size = (1 if not v3 else (len(handles) + 1) // 2
+            if SEG_V3 % mb_size == 0 else len(handles))
+    _emit_spans(arr, [handles[i:i + size] for i in
+                      range(0, len(handles), max(size, 1))],
+                collect, SEG_V3 if v3 else SEG, mb_size, max_distance,
+                base, on_block, hist)
+    return None
 
 
 def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
@@ -1637,12 +1661,12 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
     the seed parse (native for the shard that
     starts the stream, else the device matcher, K2, on its device); the
     cost tables; the dictionary probe. Then per round k every shard's
-    k-th segment runs `dp_v3_segment` on its device, all padded to one
-    common bucket. A shard already out of segments runs nothing: the
-    JAX mesh's one program runs a zero segment there and drops its
-    result, but the port queues each device on its own. Then per shard:
-    the collect, coalesce, bridge and dictionary post-pass, keeping the
-    matches past its halo.
+    k-th segment runs `dp_v3_segment` on its device (_queue_v3), all
+    padded to one common bucket. A shard already out of segments runs
+    nothing: the JAX mesh's one program runs a zero segment there and
+    drops its result, but the port queues each device on its own. Then
+    per shard the collect and _batch_tail, keeping the matches past its
+    halo.
 
     `seg`: the DP segment, which is also the halo's cap; None means
     SEG_V3 with the BUCKETS_V3 pads, any other size pads to itself (the
@@ -1692,7 +1716,6 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
     # one common bucket: the JAX mesh compiles one program for every
     # (shard, round)
     b = max(_bucket_in(min(len(s["buf"]), seg), buckets) for s in shards)
-    capm = b // CAPM_DIV
     rounds = max((len(s["buf"]) + seg - 1) // seg for s in shards)
     for s, dev in zip(shards, devs):
         s["dtabs"] = device_tables(s["tables"], dev)
@@ -1709,86 +1732,20 @@ def find_matches_optimal_sharded(arr, bounds, max_distance, devices,
             hi_k = min(lo_k + seg, nbuf)
             padded = np.zeros(b, np.uint8)
             padded[:hi_k - lo_k] = s["buf"][lo_k:hi_k]
-            npos, spos, slen, sdist, dloc, dval = segment_inputs(
-                s["buf"], [s["seed"]], s["dict_g"], lo_k, hi_k, b, dev)
-            bits_tab, ctx_tab, copyq, distq = s["dtabs"]
-            with trace.stage("dp.dispatch"):
-                packed, full = dp_v3_segment(
-                    torch.from_numpy(padded).to(dev), npos, max_distance,
-                    bits_tab, ctx_tab, copyq, distq, spos, slen, sdist,
-                    dloc, dval, lo_k + s["base"], capm=capm, cfg=cfg,
-                    icell_q=s["icell"])
-            handles[si].append((lo_k, capm, packed, full, fetch.mark(dev),
-                                0))
+            with trace.stage("dp.upload"):
+                seg_k = torch.from_numpy(padded).to(dev)
+            handles[si].append(_queue_v3(
+                seg_k, s["buf"], [s["seed"]], s["dict_g"], lo_k, hi_k, 0,
+                s["dtabs"], s["icell"], max_distance, lo_k + s["base"],
+                cfg))
 
     out = []
     for si, s in enumerate(shards):
-        all_m, all_l, all_d, all_f = _collect_v3(
-            handles[si], (s["dict_g"][0].astype(np.int64), s["dict_g"][2]),
-            max_distance, s["base"])
-        if not all_m:
-            z = np.zeros(0, np.int64)
-            out.append((z, z, z, z))
-            continue
-        with trace.stage("dp.collect"):
-            m, lens, dists, flags = bridge_matches(s["buf"], *_coalesce(
-                np.concatenate(all_m), np.concatenate(all_l),
-                np.concatenate(all_d), np.concatenate(all_f)))
-        with trace.stage("dp.dict-post"):
-            m, lens, dists, flags = add_dictionary_matches(
-                s["buf"], m, lens, dists, flags, max_distance, s["base"])
+        table = (s["dict_g"][0].astype(np.int64), s["dict_g"][2])
+        m, lens, dists, flags = _batch_tail(
+            s["buf"], _collect_v3(handles[si], table, max_distance,
+                                  s["base"]), max_distance, s["base"])
         keep = m >= s["h"]
         out.append((m[keep] - s["h"], lens[keep], dists[keep],
                     flags[keep]))
     return out
-
-
-def _stream_v3(arr, handles, dict_table, n, mb_size, max_distance,
-               base, on_block, hist=None):
-    """Chunked streaming collect: fetch the first half of the segments
-    and emit their spans (native serialization on the host worker)
-    while the card still computes the second half. Segment boundaries
-    are hard parse boundaries and mb_size divides SEG_V3, so each group
-    covers whole metablocks. `hist`: find_matches_optimal's."""
-    half = (len(handles) + 1) // 2
-    z = np.zeros(0, np.int64)
-    for group in (handles[:half], handles[half:]):
-        if not group:
-            continue
-        glo = group[0][0]
-        ghi = min(group[-1][0] + SEG_V3, n)
-        am, al, ad, af = _collect_v3(group, dict_table, max_distance,
-                                     base, hist)
-        if am:
-            with trace.stage("dp.collect"):
-                gm, gl, gd, gf = _bridge(arr, hist, *_coalesce(
-                    np.concatenate(am), np.concatenate(al),
-                    np.concatenate(ad), np.concatenate(af)))
-        else:
-            gm = gl = gd = gf = z
-        _emit_spans(arr, gm, gl, gd, gf, n, mb_size, max_distance,
-                    base, on_block, lo=glo, hi=ghi, hist=hist)
-
-
-def _emit_spans(arr, m, lens, dists, flags, n, mb_size, max_distance,
-                base, on_block, lo=0, hi=None, hist=None):
-    """Emit the finished parse as metablock spans ([lo, hi) restricts
-    to one collected group's span range); each span's matches are final
-    after `_finish`."""
-    pm, pl, pd, pf = m, lens, dists, flags
-    emitted = lo
-    if hi is None:
-        hi = n
-    while emitted < hi:
-        mb_hi = min(emitted + mb_size, n)
-        with trace.stage("dp.span-split"):
-            pm, pl, pd, pf = split_matches_at(
-                pm, pl, pd, pf, [mb_hi, n + 1])
-            take = pm < mb_hi
-            bm, bl, bd, bf = pm[take], pl[take], pd[take], pf[take]
-            pm, pl, pd, pf = (pm[~take], pl[~take], pd[~take],
-                              pf[~take])
-        bm, bl, bd, bf = _finish(arr[:mb_hi], bm, bl, bd, bf,
-                                 max_distance, base, hist, emitted)
-        on_block(emitted, mb_hi, (bm, bl, bd, bf))
-        emitted = mb_hi

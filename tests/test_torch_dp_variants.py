@@ -11,10 +11,11 @@ JAX package's environment variables, bit for bit, on the CPU.
   (d) K8's plain version, the path-ring scan, with the implicit-cell
       row off and on, on a real segment and on seeded rings; K1 at the
       39 slots of the 16-byte level;
-  (e) `find_matches_optimal(dp=...)`: v1 whole and streamed, ring_scan,
-      ring_scan + icell, level3, iterations=2, fast_first=False, the
-      cost knobs; the encoded bytes of v1 and of compress_sharded with
-      two shards, through both packages' decoders.
+  (e) `find_matches_optimal(dp=...)`: v1 whole, v1 and v3 streamed,
+      ring_scan, ring_scan + icell, level3, iterations=2,
+      fast_first=False, the cost knobs; the encoded bytes of v1 and of
+      compress_sharded with two shards, through both packages'
+      decoders.
 
 Segments are 64 KiB in both packages (SEG, _BUCKETS, SEG_V3). The JAX
 package reads LEVELS at import and its variables while a function is
@@ -613,18 +614,25 @@ def test_find_matches_optimal_variant(jax_env, arr, arr1, name):
     assert len(port[0]) > 1000
 
 
-def test_find_matches_v1_streamed(jax_env, arr):
-    """v1 streaming: the spans and their matches, metablocks of 16 KiB
-    (four a segment)."""
-    jax_env({"BROTLI_TPU_DP": "v1"})
+@pytest.mark.parametrize("mb_size", [1 << 14, 1 << 17],
+                         ids=["16KiB", "128KiB"])
+@pytest.mark.parametrize("mode", ["v1", "v3"])
+def test_find_matches_streamed(jax_env, arr, mode, mb_size):
+    """Streaming: the spans and their matches. Metablocks of 16 KiB
+    divide the segment: v1 emits them a segment at a time, v3 in two
+    halves of the input, the first segment dispatched early
+    (fast_first). Metablocks of 128 KiB do not: v1 carries the first
+    segment's matches into the span the second completes, and v3
+    collects every segment, then emits."""
+    jax_env({"BROTLI_TPU_DP": mode})
     got, want = [], []
-    O.find_matches_optimal(arr, MAXD, device="cpu", dp=DPConfig(mode="v1"),
+    O.find_matches_optimal(arr, MAXD, device="cpu", dp=DPConfig(mode=mode),
                            on_block=lambda *a: got.append(a),
-                           mb_size=1 << 14)
+                           mb_size=mb_size)
     OJ.find_matches_optimal_jax(arr, MAXD, 11,
                                 on_block=lambda *a: want.append(a),
-                                mb_size=1 << 14)
-    assert len(got) == len(want) == len(arr) >> 14
+                                mb_size=mb_size)
+    assert len(got) == len(want) == -(-len(arr) // mb_size)
     for (lo, hi, m), (rlo, rhi, rm) in zip(got, want):
         assert (lo, hi) == (rlo, rhi)
         _eq_all(m, rm)
@@ -634,7 +642,7 @@ def test_find_matches_v1_streamed(jax_env, arr):
 def test_encode_v1_matches_jax(jax_env, arr, lgblock):
     """The v1 stream of the q11 encode, metablocks of two segments
     (collected whole, then split), through both decoders (spans of a
-    quarter segment: test_find_matches_v1_streamed)."""
+    quarter segment: test_find_matches_streamed)."""
     jax_env({"BROTLI_TPU_DP": "v1"})
     out = PE._encode_q11_streamed(arr, len(arr), MAXD, 11, lgblock, 22,
                                   torch.device("cpu"), DPConfig(mode="v1"))

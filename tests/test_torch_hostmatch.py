@@ -2,10 +2,10 @@
 serialized shared dictionaries, against the JAX package on the CPU.
 
   (a) enc/matcher: `hash4`, `distance_bit_cost`, `_dist_codes`,
-      `_tz_bytes`, `_batch_match_len`, `find_matches_vectorized` (with
-      and without the static dictionary, with a base, with a cost
-      model), `find_matches_costmodel`, `find_matches_greedy`, and the
-      numpy pass of `add_dictionary_matches` (below 16 KiB, with
+      `_tz_bytes`, `find_matches_vectorized` (with and without the
+      static dictionary, with a base, with a cost model),
+      `find_matches_costmodel`, `find_matches_greedy`, and the numpy
+      pass of `add_dictionary_matches` (below 16 KiB, with
       native_pass=False above it as the JAX package's
       BROTLI_TPU_NO_NATIVE_DICT, and where the native pass runs out of
       room);
@@ -108,13 +108,6 @@ def test_matcher_helpers(seed):
     x[::3] &= np.uint64(0xFFFFFF0000000000)
     x[::7] = 0
     np.testing.assert_array_equal(PM._tz_bytes(x), JM._tz_bytes(x))
-    pos = rng.integers(0, len(data), 2000)
-    cand = rng.integers(0, len(data), 2000)
-    valid = rng.random(2000) < 0.8
-    for cap in (16, 40, 100):
-        np.testing.assert_array_equal(
-            PM._batch_match_len(data, pos, cand, valid, cap),
-            JM._batch_match_len(data, pos, cand, valid, cap))
 
 
 @pytest.mark.parametrize("name", list(INPUTS))
