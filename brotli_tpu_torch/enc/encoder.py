@@ -5,7 +5,7 @@ uncompressed fallback, streaming.
 Routes, chosen by the JAX package's conditions before any work:
 - the native one-shot and streaming encoders, for what they take;
 - the q10/q11 device encode, where the optimal-parse DP on the card
-  streams finished metablock spans into a native serialization worker,
+  streams finished metablock spans to a pool of native serializers,
   with a raw dictionary as the parse's history where one is given;
 - the Python pipeline for everything else: a match finder over the
   whole input (`find_matches`: the device DP or matcher on the card,
@@ -19,8 +19,9 @@ device backend, "numpy" only the host matchers and the host DP. No
 route gives way to another after a failure.
 """
 
-import queue
+import os
 import threading
+from concurrent import futures
 
 import numpy as np
 
@@ -312,68 +313,97 @@ def _write_blocks(bw, arr, lo, hi, matches, lgblock, is_last,
 def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
                          device=None, dp=None, dictionary=None):
     """Producer/consumer q11 encode: the device DP streams finished
-    metablock spans into a serialization worker.
+    metablock spans to a pool of native serializers.
 
     Every span serializes to a byte-aligned blob (non-last spans end
-    with an empty metadata block, the BROTLI_OPERATION_FLUSH stitch) by
-    the native matches-array serializer; the 4-slot distance ring
-    carries across spans. With a raw `dictionary` the parse copies from
-    it too, and the serializer writes those copies as compound
-    references."""
-    q = queue.Queue(maxsize=4)
-    err = []
-    state = {"ring": None}
-    parts = []
+    with an empty metadata block, the BROTLI_OPERATION_FLUSH stitch), so
+    only the 4-slot distance ring orders the spans. Each span starts
+    from the ring `bitstream.ring_after` derives from the spans before
+    it, the spans serialize side by side (ctypes releases the
+    interpreter lock) on min(spans, 8, cores) threads, at most two more
+    than that in flight, and the blobs are joined in span order. Each
+    call also returns its span's true exit ring: where that is not the
+    ring the next span started from, the spans after it are serialized
+    again, one after another, from the true rings (counter
+    serialize.ring_redo), so the stream is always the one a single
+    serializer writes in order. A failed span raises on the caller once
+    the spans in flight have ended. With a raw `dictionary` the parse
+    copies from it too, and the serializer writes those copies as
+    compound references."""
     native.get_lib()
     data_bytes = arr.tobytes()
     dict_len = len(dictionary) if dictionary else 0
-
-    def serialize_span(lo, hi, matches):
-        blob, ring = native.serialize_region(
-            data_bytes, lo, hi, matches, quality, lgwin,
-            ring=state["ring"], write_header=(lo == 0), is_last=hi >= n,
-            align_end=True, dict_len=dict_len)
-        state["ring"] = ring
-        parts.append(blob)
-
+    workers = min(-(-n // (1 << lgblock)), 8, len(os.sched_getaffinity(0)))
+    slots = threading.Semaphore(workers + 2)
+    spans = []     # (lo, hi, matches, entry ring, future), in span order
+    parts = []     # the blobs of spans[:len(parts)], whose rings held
+    ring = None    # the true exit ring of those spans
+    predicted = None  # the entry ring of the next span handed over
+    running = set()   # spans being serialized (counted with tracing on)
+    lock = threading.Lock()
     carried = trace.carry()
 
-    def worker():
-        try:
-            with trace.adopt(carried):
-                while True:
-                    item = q.get()
-                    if item is None:
-                        return
-                    with trace.stage("serialize"):
-                        serialize_span(*item)
-        except BaseException as e:  # surfaced on the producer thread
-            err.append(e)
-            # keep draining so a blocked producer can always make
-            # progress (a dead consumer + full queue would deadlock)
-            while True:
-                if q.get() is None:
-                    return
+    def serialize(lo, hi, matches, entry):
+        return native.serialize_region(
+            data_bytes, lo, hi, matches, quality, lgwin, ring=entry,
+            write_header=lo == 0, is_last=hi >= n, align_end=True,
+            dict_len=dict_len)
 
-    t = threading.Thread(target=worker)
-    t.start()
+    def pooled(k, lo, hi, matches, entry):
+        with trace.adopt(carried), trace.stage("serialize"):
+            if trace.enabled():
+                with lock:
+                    if running and min(running) < k:
+                        trace.count("serialize.overlapped")
+                    running.add(k)
+            try:
+                return serialize(lo, hi, matches, entry)
+            finally:
+                with lock:
+                    running.discard(k)
+
+    def settle(final):
+        """Take the finished spans in order while each one's entry ring
+        is the ring the span before it ended on, dropping their matches;
+        with `final`, wait for every span and serialize again each one
+        whose entry ring was wrong."""
+        nonlocal ring
+        for k in range(len(parts), len(spans)):
+            lo, hi, matches, entry, fut = spans[k]
+            if not (final or fut.done()):
+                return
+            blob, out = fut.result()  # a failed span raises here
+            if not (entry is ring or np.array_equal(entry, ring)):
+                if not final:
+                    return
+                trace.count("serialize.ring_redo")
+                with trace.stage("serialize"):
+                    blob, out = serialize(lo, hi, matches, ring)
+            spans[k] = None
+            parts.append(blob)
+            ring = out
 
     def on_block(lo, hi, matches):
-        if err:
-            raise err[0]
+        nonlocal predicted
+        settle(False)
+        trace.count("serialize.spans")
         with trace.stage("serialize.wait"):
-            q.put((lo, hi, matches))
+            slots.acquire()
+            fut = pool.submit(pooled, len(spans), lo, hi, matches,
+                              predicted)
+            fut.add_done_callback(lambda _: slots.release())
+        spans.append((lo, hi, matches, predicted, fut))
+        predicted = bitstream.ring_after(matches[2], matches[3], predicted)
 
+    pool = futures.ThreadPoolExecutor(max_workers=workers)
     try:
         find_matches_optimal(arr, maxback, on_block=on_block,
                              mb_size=1 << lgblock, device=device, dp=dp,
                              dictionary=dictionary)
-    finally:
         with trace.stage("serialize.wait"):
-            q.put(None)
-            t.join()
-    if err:
-        raise err[0]
+            settle(True)
+    finally:
+        pool.shutdown(cancel_futures=True)
     return b"".join(parts)
 
 

@@ -1,5 +1,5 @@
 """utils/trace on the CPU: nothing recorded with tracing off; spans with
-their parent, thread and request, the q11 serializer worker's too;
+their parent, thread and request, the q11 serializer pool's too;
 _extend_capped's counters; spans on the profiler's clock and in
 device_profile's Chrome trace; reset, report, the buffer's cap; and the
 benchmark's readers of spans and counters in a traced run of each cell,
@@ -253,6 +253,10 @@ def test_dcb_counters_sum_over_the_spans_of_a_request(monkeypatch):
         want["dcb.far_bytes"] += int(lens[c & (concat > maxback)].sum())
     got = trace.counters()
     assert {k: v for k, v in got.items() if k.startswith("dcb.")} == want
+    # the serializer pool's (enc/encoder): both spans handed over, the
+    # second begun beside the first or not, neither serialized again
+    assert got.pop("serialize.spans") == 2
+    assert got.pop("serialize.overlapped", 0) <= 1
     # and the request's one dictionary probe (ops/optimal)
     assert set(got) - set(want) == {"dp.dict-probe.bytes",
                                     "dp.dict-probe.positions",
@@ -340,6 +344,7 @@ def traced_cells():
 
 @pytest.mark.parametrize("wl,names", [
     ("q11_w22.bulk16m", {"q11_host.serialize_wait_ms_per_MiB",
+                         "q11_host.serialize_overlap_share",
                          "idle_unspanned_share"}),
     ("q5_w22.logs16m", {"q5_match.caphits_per_MiB",
                         "q5_match.extend_us_per_extension",
