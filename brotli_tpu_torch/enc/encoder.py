@@ -340,7 +340,11 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
     from the ring `bitstream.ring_after` derives from the spans before
     it, the spans serialize side by side (ctypes releases the
     interpreter lock) on min(spans, 8, cores) threads, at most two more
-    than that in flight, and the blobs are joined in span order. Each
+    than that in flight, and the blobs are joined in span order. A span
+    starts with a thread budget for its metablocks' literal passes: the
+    cores less the spans being serialized and, until the parse hands
+    over its last span, one for the parse, at least 1 (a one-span
+    request takes every core; the bytes do not depend on it). Each
     call also returns its span's true exit ring: where that is not the
     ring the next span started from, the spans after it are serialized
     again, one after another, from the true rings (counter
@@ -355,41 +359,49 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
     With tracing on, each span taken into the stream counts what its
     serialization returned: serialize.metablocks, serialize.dist_params
     (metablocks with NPOSTFIX or NDIRECT not 0), serialize.dists
-    (explicit distances) and serialize.dist_extra_bits (their extra
-    bits)."""
+    (explicit distances), serialize.dist_extra_bits (their extra
+    bits) and serialize.threaded (metablocks whose literal passes ran on
+    more than one thread)."""
     native.get_lib()
     data_bytes = arr.tobytes()
     dict_len = len(dictionary) if dictionary else 0
     font = mode == FONT
     coding = (dict(ctx_mode=FONT_CTX_MODE, dist_search=True) if font
               else {})
-    workers = min(-(-n // (1 << lgblock)), 8, len(os.sched_getaffinity(0)))
+    cores = len(os.sched_getaffinity(0))
+    workers = min(-(-n // (1 << lgblock)), 8, cores)
     slots = threading.Semaphore(workers + 2)
     spans = []     # (lo, hi, matches, entry ring, future), in span order
     parts = []     # the blobs of spans[:len(parts)], whose rings held
     ring = None    # the true exit ring of those spans
     predicted = None  # the entry ring of the next span handed over
-    running = set()   # spans being serialized (counted with tracing on)
+    running = set()   # spans being serialized
+    parsing = True    # the parse has spans left to hand over
     lock = threading.Lock()
     carried = trace.carry()
 
-    def serialize(lo, hi, matches, entry):
+    def serialize(lo, hi, matches, entry, threads):
         stats = {}
         blob, out = native.serialize_region(
             data_bytes, lo, hi, matches, quality, lgwin, ring=entry,
             write_header=lo == 0, is_last=hi >= n, align_end=True,
-            dict_len=dict_len, stats=stats, **coding)
+            dict_len=dict_len, stats=stats, threads=threads, **coding)
         return blob, out, stats
+
+    def budget():
+        """The cores not busy now: less the spans being serialized, and
+        one for the parse until its last span (call holding `lock`)."""
+        return max(1, cores - len(running) - int(parsing))
 
     def pooled(k, lo, hi, matches, entry):
         with trace.adopt(carried), trace.stage("serialize"):
-            if trace.enabled():
-                with lock:
-                    if running and min(running) < k:
-                        trace.count("serialize.overlapped")
-                    running.add(k)
+            with lock:
+                if trace.enabled() and running and min(running) < k:
+                    trace.count("serialize.overlapped")
+                threads = budget()
+                running.add(k)
             try:
-                return serialize(lo, hi, matches, entry)
+                return serialize(lo, hi, matches, entry, threads)
             finally:
                 with lock:
                     running.discard(k)
@@ -409,8 +421,11 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
                 if not final:
                     return
                 trace.count("serialize.ring_redo")
+                with lock:
+                    threads = budget()
                 with trace.stage("serialize"):
-                    blob, out, stats = serialize(lo, hi, matches, ring)
+                    blob, out, stats = serialize(lo, hi, matches, ring,
+                                                 threads)
             spans[k] = None
             parts.append(blob)
             ring = out
@@ -418,8 +433,11 @@ def _encode_q11_streamed(arr, n, maxback, quality, lgblock, lgwin,
                 trace.count(f"serialize.{name}", value)
 
     def on_block(lo, hi, matches):
-        nonlocal predicted
+        nonlocal predicted, parsing
         settle(False)
+        if hi >= n:  # the parse's last span: it has nothing left to do
+            with lock:
+                parsing = False
         trace.count("serialize.spans")
         with trace.stage("serialize.wait"):
             slots.acquire()

@@ -55,7 +55,8 @@ def build() -> bool:
             return False
         tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run(
-            ["cc", "-O2", "-march=native", "-shared", "-fPIC", "-o",
+            ["cc", "-O2", "-march=native", "-shared", "-fPIC", "-pthread",
+             "-o",
              str(tmp)] + [str(s) for s in _SRCS] + ["-lm"],
             check=True, capture_output=True)
         os.replace(tmp, _LIB)
@@ -93,7 +94,7 @@ def get_lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_size_t), ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
             lib.btpu_serialize.restype = ctypes.c_int
             sig = list(lib.btpu_serialize.argtypes)
             lib.btpu_serialize_compound.argtypes = (
@@ -609,7 +610,8 @@ def dict_probe_gated(data, gate_lo, gate_hi, base: int = 0,
     return op[:k].copy(), pl[:k].copy()
 
 
-SERIALIZE_STATS = ("metablocks", "dist_params", "dists", "dist_extra_bits")
+SERIALIZE_STATS = ("metablocks", "dist_params", "dists", "dist_extra_bits",
+                   "threaded")
 
 
 def serialize_region(data: bytes, lo: int, hi: int, matches,
@@ -617,7 +619,7 @@ def serialize_region(data: bytes, lo: int, hi: int, matches,
                      write_header: bool = False, is_last: bool = False,
                      align_end: bool = True, dict_len: int = 0,
                      ctx_mode: int = -1, dist_search: bool = False,
-                     stats: dict = None):
+                     stats: dict = None, threads: int = 1):
     """Native serialization of a parsed region from (pos, len, dist,
     flag) match arrays (BrotliStoreMetaBlock role). Returns (bytes,
     exit_ring). Raises ValueError for unsupported flags.
@@ -632,8 +634,16 @@ def serialize_region(data: bytes, lo: int, hi: int, matches,
     enc/bitstream.choose_distance_params does (btpu_distcode.c; lgwin
     24 or less), else write 0/0. `stats`: a dict that receives the
     call's counts under SERIALIZE_STATS' names: metablocks written,
-    those with NPOSTFIX or NDIRECT not 0, explicit distances and their
-    extra bits."""
+    those with NPOSTFIX or NDIRECT not 0, explicit distances, their
+    extra bits, and the metablocks whose literal passes ran on more
+    than one thread.
+
+    `threads`: how many threads a metablock's q10/q11 literal passes
+    may use, the calling thread one of them (the split ladder's four
+    rungs and the per-type context clustering run side by side); the
+    bytes do not depend on it."""
+    if threads < 1:
+        raise ValueError(f"threads must be 1 or more, not {threads}")
     lib = get_lib()
     m, lens, dists, flags = (np.ascontiguousarray(a, np.uint32)
                              for a in matches)
@@ -653,7 +663,7 @@ def serialize_region(data: bytes, lo: int, hi: int, matches,
         1 if write_header else 0, 1 if is_last else 0,
         1 if align_end else 0,
         ctypes.byref(out_ptr), ctypes.byref(out_len), _ptr(ring_out),
-        ctx_mode, 1 if dist_search else 0, _ptr(counts))
+        ctx_mode, 1 if dist_search else 0, _ptr(counts), threads)
     if rc != 0:
         raise ValueError(_ENC_ERRORS.get(rc, f"serialize error {rc}"))
     if stats is not None:

@@ -41,7 +41,8 @@ int btpu_serialize(const uint8_t* data_full, size_t n, size_t lo,
                    size_t nmatch, const uint32_t* ring_in,
                    int write_header, int is_last, int align_end,
                    uint8_t** out, size_t* out_len, uint32_t* ring_out,
-                   int ctx_mode, int dist_search, uint64_t* stats);
+                   int ctx_mode, int dist_search, uint64_t* stats,
+                   int threads);
 
 /* The distance of dictionary address `addr` from stream position p. */
 static uint64_t compound_dist(uint64_t p, uint64_t maxback,
@@ -62,7 +63,7 @@ int btpu_serialize_compound(const uint8_t* data_full, size_t n, size_t lo,
                             int is_last, int align_end, uint8_t** out,
                             size_t* out_len, uint32_t* ring_out,
                             int ctx_mode, int dist_search,
-                            uint64_t* stats) {
+                            uint64_t* stats, int threads) {
   if (lgwin < 10 || lgwin > 24 || lo >= hi) return CMP_EERR_PARAM;
   const uint64_t maxback = ((uint64_t)1 << lgwin) - 16;
   /* first pass: check every reference and count its pieces */
@@ -119,7 +120,7 @@ int btpu_serialize_compound(const uint8_t* data_full, size_t n, size_t lo,
   int rc = btpu_serialize(data_full, n, lo, hi, quality, lgwin, op, ol, od,
                           of, k, ring_in, write_header, is_last, align_end,
                           out, out_len, ring_out, ctx_mode, dist_search,
-                          stats);
+                          stats, threads);
   free(buf);
   return rc;
 }

@@ -40,6 +40,8 @@ enum {
   DSTAT_PARAMS,      /* of those, written with NPOSTFIX or NDIRECT not 0 */
   DSTAT_DISTS,       /* explicit distances written */
   DSTAT_EXTRA_BITS,  /* their extra bits */
+  DSTAT_THREADED,    /* metablocks whose literal split ladder or per-type
+                        clustering ran on more than one thread */
   DSTAT_N
 };
 

@@ -2156,34 +2156,103 @@ static inline void emit_switch_c(BW* bw, const Split* sp, SwitchPlan* sw,
    neutral on the 16MB corpus (the 48-tree cap binds there) */
 static const double kLitTableCost = 180.0;
 
+/* ---------- fork-join over a call's thread budget ----------
+   A btpu_serialize call may run the independent tasks of two q10/q11
+   literal passes side by side inside one metablock: the split ladder's
+   rungs and the per-type context clustering. Each task writes only its
+   own result slot and the caller combines the slots in task order, so
+   the bytes never depend on the budget. No state outside the job:
+   several serializers run at once, each with its own budget. */
+#define PAR_MAX_THREADS 16
+
+typedef struct {
+  int threads; /* the call's budget (<= 1: every task on the caller) */
+  int spread;  /* set when a fork-join of this metablock ran on more
+                  than one thread (counted as DSTAT_THREADED) */
+} ParBudget;
+
+typedef void (*ParTask)(void* ctx, int task);
+
+typedef struct {
+  ParTask fn;
+  void* ctx;
+  int n;
+  int next; /* the next task to take (atomic) */
+} ParJob;
+
+static void* par_take(void* arg) {
+  ParJob* j = (ParJob*)arg;
+  int t;
+  while ((t = __atomic_fetch_add(&j->next, 1, __ATOMIC_RELAXED)) < j->n)
+    j->fn(j->ctx, t);
+  return NULL;
+}
+
+/* fn(ctx, 0..n-1), tasks taken in order by up to par->threads threads,
+   the caller one of them; returns when every task has run. At a budget
+   of 1 (or a thread that cannot start) the caller runs them all. */
+static void par_for(ParBudget* par, int n, ParTask fn, void* ctx) {
+  ParJob j = {fn, ctx, n, 0};
+  pthread_t tid[PAR_MAX_THREADS];
+  int want = par->threads < n ? par->threads : n;
+  if (want > PAR_MAX_THREADS) want = PAR_MAX_THREADS;
+  int started = 0;
+  while (started + 1 < want &&
+         pthread_create(&tid[started], NULL, par_take, &j) == 0)
+    started++;
+  par_take(&j);
+  for (int i = 0; i < started; i++) pthread_join(tid[i], NULL);
+  if (started) par->spread = 1;
+}
+
 /* Two-level literal-row clustering: per-type pre-merge of the 64
    context rows, then a global cluster of the group representatives.
    Cuts the O(rows^2) pair-gain fill ~8x on rich splits (16 types x 64
    ctx = 1024 rows -> ~16x2016 + ~200^2/2 pairs) at negligible quality
    cost (within-type merges are re-examined globally). hist is mutated;
-   tree t's histogram ends in hist[reps[t]*NUM_LIT], as cluster_hists. */
+   tree t's histogram ends in hist[reps[t]*NUM_LIT], as cluster_hists.
+   The per-type pre-merges run side by side on par's budget, each on
+   its type's own rows, and are joined in type order. */
+typedef struct {
+  uint32_t* hist;
+  int *ga, *gr; /* a type's 64 slots each */
+  int* g;       /* a type's group count (< 0: out of memory) */
+} TypeClusters;
+
+static void cluster_one_type(void* ctx, int t) {
+  TypeClusters* c = (TypeClusters*)ctx;
+  const size_t at = (size_t)t * NUM_LIT_CTX;
+  c->g[t] = cluster_hists(c->hist + at * NUM_LIT, NUM_LIT_CTX, NUM_LIT,
+                          NUM_LIT_CTX, kLitTableCost, 1.5, c->ga + at,
+                          c->gr + at);
+}
+
 static int cluster_lit_rows(uint32_t* hist, int ntypes, int max_trees,
-                            int* assign, int* reps) {
+                            int* assign, int* reps, ParBudget* par) {
   const int K = ntypes * NUM_LIT_CTX;
   if (ntypes <= 2)
     return cluster_hists(hist, K, NUM_LIT, max_trees, kLitTableCost,
                          1.5, assign, reps);
-  int ga[NUM_LIT_CTX], gr[NUM_LIT_CTX];
   int* gidx = (int*)malloc(sizeof(int) * (size_t)K);
   int* row_group = (int*)malloc(sizeof(int) * (size_t)K);
-  if (!gidx || !row_group) {
+  int* slots = (int*)malloc(sizeof(int) * ((size_t)2 * K + ntypes));
+  if (!gidx || !row_group || !slots) {
     free(gidx);
     free(row_group);
+    free(slots);
     return -1;
   }
+  TypeClusters tc = {hist, slots, slots + K, slots + 2 * K};
+  par_for(par, ntypes, cluster_one_type, &tc);
   int ng = 0;
   for (int t = 0; t < ntypes; t++) {
-    int g = cluster_hists(hist + (size_t)t * NUM_LIT_CTX * NUM_LIT,
-                          NUM_LIT_CTX, NUM_LIT, NUM_LIT_CTX,
-                          kLitTableCost, 1.5, ga, gr);
+    int g = tc.g[t];
+    const int* ga = tc.ga + t * NUM_LIT_CTX;
+    const int* gr = tc.gr + t * NUM_LIT_CTX;
     if (g < 0) {
       free(gidx);
       free(row_group);
+      free(slots);
       return -1;
     }
     for (int c = 0; c < NUM_LIT_CTX; c++)
@@ -2192,6 +2261,7 @@ static int cluster_lit_rows(uint32_t* hist, int ntypes, int max_trees,
       gidx[ng + j] = t * NUM_LIT_CTX + gr[j];
     ng += g;
   }
+  free(slots);
   uint32_t* gh = (uint32_t*)malloc((size_t)ng * NUM_LIT * 4);
   int* ga2 = (int*)malloc(sizeof(int) * (size_t)ng);
   int* gr2 = (int*)malloc(sizeof(int) * (size_t)ng);
@@ -2270,6 +2340,7 @@ typedef struct {
   SwitchPlan* swp;
   uint8_t* bp;     /* nlit * KMAX Viterbi backpointers */
   uint8_t *lt_cur, *lt_try, *lt_best; /* nlit each */
+  ParBudget* par;  /* the clustering's thread budget */
 } LitRefine;
 
 /* Exact literal-channel cost (bits) of a compact split candidate.
@@ -2284,7 +2355,7 @@ static double lit_split_score(const uint8_t* lt, int k, size_t nlit,
   for (size_t i = 0; i < nlit; i++)
     sc->hist[(((size_t)lt[i] << 6) + lctx[i]) * NUM_LIT + lbytes[i]]++;
   int ntr = cluster_lit_rows(sc->hist, k, MAX_LIT_TREES, sc->assign,
-                             sc->reps);
+                             sc->reps, sc->par);
   if (ntr < 0) return HUGE_VAL;
   *out_ntr = ntr;
   for (int t = 0; t < ntr; t++)
@@ -2395,9 +2466,9 @@ static int refine_lit_split(PmScratch* pm, size_t nlit,
                             const uint8_t* lbytes, const uint8_t* lctx,
                             Split* lsp, uint32_t** plit_hist,
                             int** plit_assign, int** plit_reps,
-                            int* pn_lit_trees) {
+                            int* pn_lit_trees, ParBudget* par) {
   int rc = EERR_ALLOC;
-  LitRefine sc = {0};
+  LitRefine sc = {.par = par};
   uint16_t* s16 = NULL;
   size_t rows = (size_t)LIT_REFINE_KMAX * NUM_LIT_CTX;
   sc.hist = (uint32_t*)malloc(rows * NUM_LIT * 4);
@@ -2527,7 +2598,7 @@ static int refine_lit_split(PmScratch* pm, size_t nlit,
       for (size_t i = 0; i < nlit; i++)
         nh[(((size_t)sc.lt_best[i] << 6) + lctx[i]) * NUM_LIT +
            lbytes[i]]++;
-      int nt = cluster_lit_rows(nh, kbest, MAX_LIT_TREES, na, nr);
+      int nt = cluster_lit_rows(nh, kbest, MAX_LIT_TREES, na, nr, par);
       if (nt < 0) {
         free(nh);
         free(na);
@@ -2591,10 +2662,37 @@ typedef struct {
   size_t plan_cap;
   int dist_search;        /* choose NPOSTFIX/NDIRECT a metablock */
   int npostfix, ndirect;  /* the current metablock's */
-  uint64_t stats[4];      /* btpu_distcode.c's DSTAT_* counts */
+  ParBudget par;          /* the literal passes' thread budget */
+  uint64_t stats[5];      /* btpu_distcode.c's DSTAT_* counts */
 } Enc;
 
 #include "btpu_distcode.c"
+
+_Static_assert(sizeof(((Enc*)0)->stats) == DSTAT_N * sizeof(uint64_t),
+               "Enc.stats holds one count per DSTAT_*");
+
+/* The literal split ladder: split_symbols_c at 2, 4, 8 and 16 types on
+   one symbol stream, each rung into its own slot. Task 0 is the 16-type
+   rung, about half the ladder's time, so it starts first. */
+#define LADDER_RUNGS 4
+static const int kLitK[LADDER_RUNGS] = {2, 4, 8, 16};
+
+typedef struct {
+  const uint16_t* syms;
+  size_t n;
+  int chunk;
+  double type_bits, sw_bits;
+  Split cand[LADDER_RUNGS];
+  int rc[LADDER_RUNGS];
+} Ladder;
+
+static void ladder_rung(void* ctx, int task) {
+  Ladder* ld = (Ladder*)ctx;
+  int t = LADDER_RUNGS - 1 - task;
+  ld->rc[t] = split_symbols_c(ld->syms, ld->n, NUM_LIT, ld->chunk,
+                              kLitK[t], ld->type_bits, ld->sw_bits,
+                              &ld->cand[t]);
+}
 
 /* Serialize one metablock from the command array. Commands must consume
    exactly [lo, hi) of the input. q >= 10 adds literal/command/distance
@@ -2606,6 +2704,7 @@ static int emit_metablock(Enc* e, const Cmd* cmds, size_t ncmd, size_t lo,
   BW* bw = &e->bw;
   int q = e->quality;
   int rc = 0;
+  e->par.spread = 0;
   if (ncmd > e->plan_cap) {
     free(e->plan);
     e->plan_cap = ncmd + 64;
@@ -2680,18 +2779,21 @@ static int emit_metablock(Enc* e, const Cmd* cmds, size_t ncmd, size_t lo,
         } else {
           /* the k-means is cheap next to the DP: try the budget
              ladder and keep the best net gain (homogeneous text
-             settles at 1-2 types, mixed corpora keep richer splits) */
-          static const int kLitK[4] = {2, 4, 8, 16};
+             settles at 1-2 types, mixed corpora keep richer splits).
+             The rungs run side by side on the call's budget; the
+             winner is chosen in rung order, as one after another. */
+          Ladder ld = {.syms = s16, .n = nlit, .chunk = lchunk,
+                       .type_bits = tbits, .sw_bits = lsw};
+          par_for(&e->par, LADDER_RUNGS, ladder_rung, &ld);
           rc = 0;
-          for (int t = 0; t < 4 && rc == 0; t++) {
-            Split cand;
-            rc = split_symbols_c(s16, nlit, NUM_LIT, lchunk, kLitK[t],
-                                 tbits, lsw, &cand);
-            if (rc == 0 && cand.ntypes > 1 && cand.gain > lsp.gain) {
+          for (int t = 0; t < LADDER_RUNGS; t++) {
+            Split* cand = &ld.cand[t];
+            if (rc == 0) rc = ld.rc[t];
+            if (rc == 0 && cand->ntypes > 1 && cand->gain > lsp.gain) {
               split_free(&lsp);
-              lsp = cand;
+              lsp = *cand;
             } else {
-              split_free(&cand);
+              split_free(cand);
             }
           }
         }
@@ -2828,7 +2930,7 @@ static int emit_metablock(Enc* e, const Cmd* cmds, size_t ncmd, size_t lo,
     /* swept: 1.5 bits/used-symbol recovers ~1% on dense binary
        histograms (mapsdatazrh: 48 -> ~20 trees) without hurting text */
     n_lit_trees = cluster_lit_rows(lit_hist, ntypes, max_trees,
-                                   lit_assign, lit_reps);
+                                   lit_assign, lit_reps, &e->par);
     if (n_lit_trees < 0) {
       rc = EERR_ALLOC;
       goto done;
@@ -2846,7 +2948,7 @@ static int emit_metablock(Enc* e, const Cmd* cmds, size_t ncmd, size_t lo,
   if (lref_bytes && use_ctx) {
     rc = refine_lit_split(&e->pm, nlit, lref_bytes, lref_ctx, &lsp,
                           &lit_hist, &lit_assign, &lit_reps,
-                          &n_lit_trees);
+                          &n_lit_trees, &e->par);
     if (rc) goto done;
     ntypes = lsp.ntypes;
   }
@@ -3100,6 +3202,7 @@ static int emit_metablock(Enc* e, const Cmd* cmds, size_t ncmd, size_t lo,
     }
   }
 done:
+  e->stats[DSTAT_THREADED] += e->par.spread;
   split_free(&lsp);
   split_free(&csp);
   split_free(&dsp);
@@ -4388,7 +4491,9 @@ int btpu_opt_parse(const uint8_t* raw, size_t n, int quality, int lgwin,
    ring_out (optional) receives the exit ring. ctx_mode: the literal
    context mode of every metablock (-1 = sniff each); dist_search:
    choose NPOSTFIX/NDIRECT a metablock (btpu_distcode.c; lgwin <= 24);
-   stats (optional) receives btpu_distcode.c's DSTAT_* counts. */
+   stats (optional) receives btpu_distcode.c's DSTAT_* counts. threads:
+   how many threads the q10/q11 literal passes of a metablock may use
+   (1: the caller's alone); the output does not depend on it. */
 int btpu_serialize(const uint8_t* data_full, size_t n, size_t lo,
                    size_t hi, int quality, int lgwin,
                    const uint32_t* mpos, const uint32_t* mlen,
@@ -4396,13 +4501,15 @@ int btpu_serialize(const uint8_t* data_full, size_t n, size_t lo,
                    size_t nmatch, const uint32_t* ring_in,
                    int write_header, int is_last, int align_end,
                    uint8_t** out, size_t* out_len, uint32_t* ring_out,
-                   int ctx_mode, int dist_search, uint64_t* stats) {
+                   int ctx_mode, int dist_search, uint64_t* stats,
+                   int threads) {
   if (lo >= hi || hi > n || lgwin < 10 || lgwin > 30 || quality < 0 ||
       quality > 11 || ctx_mode < -1 || ctx_mode > 3 ||
-      (dist_search && lgwin > 24))
+      (dist_search && lgwin > 24) || threads < 1)
     return EERR_PARAM;
   Enc e;
   memset(&e, 0, sizeof(e));
+  e.par.threads = threads;
   e.data = data_full;
   e.n = n;
   e.quality = quality;

@@ -263,6 +263,8 @@ def test_dcb_counters_sum_over_the_spans_of_a_request(monkeypatch):
     assert got.pop("serialize.dist_params") == 0
     assert got.pop("serialize.dists") > 0
     assert got.pop("serialize.dist_extra_bits") > 0
+    # and the metablocks whose literal passes ran on several threads
+    assert 0 <= got.pop("serialize.threaded") <= 2
     # and the request's one dictionary probe (ops/optimal)
     assert set(got) - set(want) == {"dp.dict-probe.bytes",
                                     "dp.dict-probe.positions",
