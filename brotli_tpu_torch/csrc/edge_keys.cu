@@ -21,6 +21,12 @@
 //          included; live rows are negative, padding rows not, and
 //          (key - 2^31) >> 14 (arithmetic) is hval - 2^17, which K10
 //          compares.
+// With `wide` (a window wider than 4 MiB, whose segments rank over up
+// to 16 Mi rows: 128 a 17-bit hash, so a source 8 MiB back is rarely at
+// one of the level's ranks) a live row's uint32 key is the product's
+// top 31 bits instead, hash >> 1 before the >> 15, with no position
+// bits: the stable sort orders a key's rows by position, and K10
+// compares whole keys.
 // npos is the level's: the segment's npos - (plen - 4), at least 0,
 // which the caller computes (a 16-byte prefix must lie inside the
 // segment's live bytes). The bytes are 16-byte aligned and n is a
@@ -53,7 +59,7 @@ constexpr int CHUNKS = TILE / 16 + 1;   // 16-byte chunks: TILE + 16 bytes
 __global__ void __launch_bounds__(THREADS)
 edge_keys_kernel(const unsigned char* __restrict__ data,
                  int* __restrict__ key, long long n, int plen,
-                 long long npos) {
+                 long long npos, int wide) {
   __shared__ uint4 chunk[CHUNKS];
   const long long p0 = (long long)blockIdx.x * TILE;
   // the bytes are 16-byte aligned and n a multiple of 16 (every bucket
@@ -79,9 +85,9 @@ edge_keys_kernel(const unsigned char* __restrict__ data,
       h ^= word(2) * 0x85EBCA77u;
       h ^= word(3) * 0xC2B2AE3Du;
     }
-    h >>= 15;
     const unsigned up = (unsigned)p;
-    const unsigned k = p < npos ? (h << 14) | (up >> 9) : (1u << 31) | up;
+    const unsigned live = wide ? h >> 1 : (h >> 15) << 14 | up >> 9;
+    const unsigned k = p < npos ? live : (1u << 31) | up;
     key[p] = (int)(k ^ 0x80000000u);
   }
 }
@@ -90,12 +96,13 @@ edge_keys_kernel(const unsigned char* __restrict__ data,
 
 extern "C" int btt_edge_keys(const unsigned char* data, int* key,
                              long long n, int plen, long long npos,
-                             cudaStream_t stream) {
+                             int wide, cudaStream_t stream) {
   if (n < 16 || n >= (1LL << 31) || (n & 15) != 0 ||
       ((uintptr_t)data & 15) != 0 || (plen != 4 && plen != 8 && plen != 16))
     return -1;
   const long long blocks = (n + TILE - 1) / TILE;
   edge_keys_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(data, key, n,
-                                                             plen, npos);
+                                                             plen, npos,
+                                                             wide);
   return (int)cudaGetLastError();
 }

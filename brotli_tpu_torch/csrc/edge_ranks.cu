@@ -9,7 +9,9 @@
 // rank k:
 //   same  = key_s[i] >> 14 == key_s[i - k] >> 14 and key_s[i] < 0 (K9's
 //           int32 keys are the JAX uint32 keys - 2^31: live rows are
-//           negative). Rows i < k have no row i - k: _shift_up fills the
+//           negative); with `wide` (K9's wide keys, a window wider than
+//           4 MiB) the whole keys are compared, key_s[i] == key_s[i - k].
+//           Rows i < k have no row i - k: _shift_up fills the
 //           head of the sorted arrays with a hash no row has, position
 //           -1 and word 0, so they never match, and neither does a
 //           padding row;
@@ -28,6 +30,12 @@
 //           a dictionary source's length also stops at the
 //           dictionary's end, dist - (base + p);
 //   out   = mlen >= 2 ? mlen << 25 | dist : 0, as int32.
+// Rows are written for positions p >= row0 only, at row p - row0: the
+// n - row0 positions of the segment's bucket. The row0 positions before
+// it are history (the segment's candidate halo, the window's bytes
+// before the segment): they are sorted, ranked and compared as sources
+// like any other, but get no row of their own, so the tables after K10
+// keep the bucket's size whatever the halo.
 //
 // Launch 1, btt_edge_ranks, once a level: the sort-carry. The TPU sorts
 // the 8 words of every position along with its key, so each rank's
@@ -43,8 +51,9 @@
 // (word-major in shared memory, so a warp's reads of 32 rows fall in
 // distinct banks). After one barrier, every thread computes its row's
 // ranks from shared memory alone and writes them, zero-padded to
-// STRIDE = 16 words, as one whole aligned 64-byte row p of the level's
-// (n, 16) block: four 16-byte stores that fill two whole sectors.
+// STRIDE = 16 words, as one whole aligned 64-byte row p - row0 of the
+// level's (n - row0, 16) block: four 16-byte stores that fill two whole
+// sectors.
 //
 // Launch 2, btt_edge_rows, once after the last level: a CTA of ROWS
 // threads owns ROWS consecutive positions, reads their rows of every
@@ -154,7 +163,8 @@ edge_ranks_kernel(const int* __restrict__ key_s,
                   const unsigned char* __restrict__ data,
                   int* __restrict__ words, long long n, Ranks rk,
                   int nranks, int kmax,
-                  long long npos, long long max_distance, long long base) {
+                  long long npos, long long max_distance, long long base,
+                  long long row0, int hs) {
   __shared__ int key_sm[S];
   __shared__ int pos_sm[S];
   __shared__ unsigned win_sm[WORDS][S];
@@ -180,7 +190,7 @@ edge_ranks_kernel(const int* __restrict__ key_s,
     pj = (int)__ldg(order + j);
     key_sm[sh] = kj;
     pos_sm[sh] = pj;
-    in_grp = kj < 0 && (kj >> 14) == (__ldg(key_s + i0) >> 14);
+    in_grp = kj < 0 && (kj >> hs) == (__ldg(key_s + i0) >> hs);
   }
   // the halo rows sharing row i0's hash: the last `grp` of the halo
   const int lo = HALO - __syncthreads_count(in_grp);
@@ -189,8 +199,8 @@ edge_ranks_kernel(const int* __restrict__ key_s,
   unsigned w[WORDS];
   const long long tile_end = n - i0 < T ? n : i0 + T;
   if (i < n && ki < 0 &&
-      ((s - 1 >= lo && (key_sm[s - 1] >> 14) == (ki >> 14)) ||
-       (i + 1 < tile_end && (key_sm[s + 1] >> 14) == (ki >> 14)))) {
+      ((s - 1 >= lo && (key_sm[s - 1] >> hs) == (ki >> hs)) ||
+       (i + 1 < tile_end && (key_sm[s + 1] >> hs) == (ki >> hs)))) {
     window(data, n, p, w);
 #pragma unroll
     for (int r = 0; r < WORDS; ++r) win_sm[r][s] = w[r];
@@ -202,12 +212,14 @@ edge_ranks_kernel(const int* __restrict__ key_s,
   }
   __syncthreads();
 
-  // 3. the row's ranks, from shared memory alone
+  // 3. the row's ranks, from shared memory alone (a halo row's are
+  // never written)
+  const bool own = i < n && p >= row0;
   int packed[MAX_RANKS];
 #pragma unroll
   for (int r = 0; r < MAX_RANKS; ++r) packed[r] = 0;
-  if (i < n && ki < 0) {
-    const int h = ki >> 14;
+  if (own && ki < 0) {
+    const int h = ki >> hs;
     long long guard = npos + 3 - p;
     if (guard < 0) guard = 0;
     const long long sp = base + p;  // the stream position
@@ -216,7 +228,7 @@ edge_ranks_kernel(const int* __restrict__ key_s,
     for (int r = 0; r < MAX_RANKS; ++r) {
       if (r >= nranks) break;
       const int sj = s - rk.k[r];
-      if (sj < lo || (key_sm[sj] >> 14) != h) continue;
+      if (sj < lo || (key_sm[sj] >> hs) != h) continue;
       const int dist = p - pos_sm[sj];
       const bool in_dict = dist > sp;
       if (dist <= 0 || (dist > max_distance && !in_dict)) continue;
@@ -240,8 +252,9 @@ edge_ranks_kernel(const int* __restrict__ key_s,
       if (m >= 2) packed[r] = (int)((m << 25) | dist);
     }
   }
-  if (i < n) {  // row p, whole: zeros past the level's ranks
-    uint4* dst = reinterpret_cast<uint4*>(words + (long long)p * STRIDE);
+  if (own) {  // row p - row0, whole: zeros past the level's ranks
+    uint4* dst =
+        reinterpret_cast<uint4*>(words + ((long long)p - row0) * STRIDE);
 #pragma unroll
     for (int q = 0; q < STRIDE / 4; ++q)
       dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
@@ -291,8 +304,10 @@ extern "C" int btt_edge_ranks(const int* key_s, const long long* order,
                               const unsigned char* data, int* words,
                               long long n, const int* ranks, int nranks,
                               long long npos, long long max_distance,
-                              long long base, cudaStream_t stream) {
+                              long long base, long long row0, int wide,
+                              cudaStream_t stream) {
   if (n < 32 || n >= (1LL << 31) || (n & 15) != 0 || nranks < 1 ||
+      row0 < 0 || row0 >= n ||
       nranks > MAX_RANKS || ((uintptr_t)data & 15) != 0 ||
       ((uintptr_t)words & 15) != 0)
     return -1;
@@ -306,7 +321,7 @@ extern "C" int btt_edge_ranks(const int* key_s, const long long* order,
   const long long blocks = (n + T - 1) / T;
   edge_ranks_kernel<<<(unsigned)blocks, T, 0, stream>>>(
       key_s, order, data, words, n, rk, nranks, kmax, npos, max_distance,
-      base);
+      base, row0, wide ? 0 : 14);
   return (int)cudaGetLastError();
 }
 

@@ -83,10 +83,11 @@ _SIGNATURES = {
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                        _P, _P],
     "btt_edge_keys": [_P, _P, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_longlong, _P],
+                      ctypes.c_longlong, ctypes.c_int, _P],
     "btt_edge_ranks": [_P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, _P],
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       _P],
     "btt_edge_rows": [_P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P],
     "btt_edge_slots": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
                        ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -391,11 +392,12 @@ def lz_resolve(lits, nlit, ncopy, dist, n_out: int, n_steps: int,
     return (out, cnt[:1], cnt[1:]) if stats else (out, cnt[:1])
 
 
-def edge_keys(data, npos, plen):
+def edge_keys(data, npos, plen, wide=False):
     """K9 on the card: the segment's uint8 bytes (n,), 16-byte aligned
     with n a multiple of 16 (a bucket), -> the int32 (n,) sort keys (the
-    JAX uint32 key - 2**31) of the level of `plen` prefix bytes (4, 8 or
-    16) below the level's `npos`."""
+    JAX uint32 key - 2**31; with `wide`, the hash's top 31 bits) of the
+    level of `plen` prefix bytes (4, 8 or 16) below the level's `npos`
+    (ops.optimal.edge_keys_plain)."""
     _check(data, "data", 1, torch.uint8)
     n = data.shape[0]
     if not 16 <= n < 1 << 31 or n % 16 or data.data_ptr() % 16 or \
@@ -403,19 +405,21 @@ def edge_keys(data, npos, plen):
         raise ValueError("edge_keys: bad shapes or arguments")
     key = torch.empty(n, dtype=torch.int32, device=data.device)
     _launch("edge_keys", "btt_edge_keys", data.device, data.data_ptr(),
-            key.data_ptr(), n, plen, int(npos))
+            key.data_ptr(), n, plen, int(npos), int(wide))
     _count("edge_keys")
     return key
 
 
 def edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
-               base=0):
+               base=0, row0=0, wide=False):
     """K10's level launch on the card: a level's stably sorted int32 keys
     and their int64 order (n,), the uint8 bytes (n,) (16-byte aligned, n
-    a multiple of 16) -> the level's candidates (len << 25 | dist) in
-    position order into the int32 `words` (n, MAX_RANKS), 16-byte
-    aligned, zero past len(ranks). `base`: the stream position of the
-    segment's first byte (ops.optimal.edge_ranks_plain)."""
+    a multiple of 16) -> the level's candidates (len << 25 | dist) of
+    the positions from `row0` on, in position order, into the int32
+    `words` (n - row0, MAX_RANKS), 16-byte aligned, zero past
+    len(ranks); the row0 positions before are history only. `base`: the
+    stream position of the first byte; `wide`: the keys are K9's wide
+    ones, compared whole (ops.optimal.edge_ranks_plain)."""
     _check(key_s, "key_s", 1)
     _check(order, "order", 1, torch.int64)
     _check(data, "data", 1, torch.uint8)
@@ -423,7 +427,8 @@ def edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
     n = key_s.shape[0]
     nranks = len(ranks)
     if order.shape[0] != n or data.shape[0] != n or \
-            words.shape != (n, MAX_RANKS) or words.data_ptr() % 16 or \
+            not 0 <= row0 < n or \
+            words.shape != (n - row0, MAX_RANKS) or words.data_ptr() % 16 or \
             data.data_ptr() % 16 or n % 16 or not 32 <= n < 1 << 31 or \
             not 1 <= nranks <= MAX_RANKS or min(ranks) < 1 or \
             max(ranks) > MAX_RANK:
@@ -431,7 +436,8 @@ def edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
     rk = (ctypes.c_int * nranks)(*ranks)
     _launch("edge_ranks", "btt_edge_ranks", key_s.device, key_s.data_ptr(),
             order.data_ptr(), data.data_ptr(), words.data_ptr(), n, rk,
-            nranks, int(npos), int(max_distance), int(base))
+            nranks, int(npos), int(max_distance), int(base), int(row0),
+            int(wide))
     _count("edge_ranks")
 
 

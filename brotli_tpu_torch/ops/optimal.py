@@ -11,7 +11,14 @@ a 2 or 4 MiB bucket):
      16-byte one with `level3`) and their capped match lengths, per
      level a sort key (K9, csrc/edge_keys.cu), a stable torch.sort and
      the ranks (K10, csrc/edge_ranks.cu, whole 64-byte rows a level),
-     then K10's row pass into one table; then the slot tables (K11,
+     then K10's row pass into one table; where the window reaches
+     before the segment (lgwin 23 and 24, `_halo`), K9, the sort and
+     K10 also run over that history, K10 writes the rows of the
+     segment's own positions only, and the keys are the hash's top 31
+     bits (K9's wide keys: a 17-bit hash would group too many of the
+     halo's rows for the ranks to reach far sources), and the seed
+     parse gains long-range matches (`_far_matches`); then the slot
+     tables (K11,
      csrc/edge_slots.cu): those candidates, continuation edges inside
      the seed parse's long matches and an atomic static-dictionary
      slot, and the literal costs;
@@ -157,6 +164,16 @@ def _bucket_in(n: int, buckets) -> int:
     return buckets[-1]
 
 
+def _wide_window(max_distance: int) -> bool:
+    """A window wider than 4 MiB (lgwin 23 and 24), the JAX package's
+    widest v3 segment: its v3 segments take a halo of the input before
+    them (_halo) and rank candidates on K9's wide keys (edge_keys_plain),
+    and without a raw dictionary its seed parse gains the long-range
+    matches (_far_matches), at any segment size; a narrower window keeps
+    the JAX package's segment-local candidates, keys and seed."""
+    return max_distance + 16 > 1 << 22
+
+
 def _bucket_v3(n: int) -> int:
     return _bucket_in(n, BUCKETS_V3)
 
@@ -220,7 +237,7 @@ def _words(data, nwords=CAPD // 4):
     return [w0] + [torch.roll(w0, -4 * r) for r in range(1, nwords)]
 
 
-def edge_keys_plain(data, npos, plen):
+def edge_keys_plain(data, npos, plen, wide=False):
     """K9, plain version of the key lines of optimal_jax._level_candidates
     with the hashes of _edges_slots: the int32 (n,) sort key of every
     position for the level of `plen` prefix bytes (4, 8 or 16), the JAX
@@ -229,26 +246,30 @@ def edge_keys_plain(data, npos, plen):
     lax.sort's permutation. The JAX key is hval << 14 | pos >> 9 below
     the level's `npos` (the segment's npos - (plen - 4), at least 0,
     which the caller passes) and 1 << 31 | pos from there; hval is the
-    level's 17-bit hash of the first plen cyclic bytes. Live rows are
-    thus negative, padding rows not."""
+    level's 17-bit hash of the first plen cyclic bytes, the top bits of
+    a uint32 product. Live rows are thus negative, padding rows not.
+
+    `wide` (v3 segments at a window wider than 4 MiB, _wide_window): a
+    live row's uint32 key is the product's top 31 bits, with no position
+    bits; the stable sort orders a key's rows by position, and K10
+    compares whole keys. A 17-bit hash would group 128 rows a value over
+    a halo's 16 Mi rows, so a source 8 MiB back would seldom be one of
+    the level's ranks."""
     w = _words(data, plen // 4)
-    if plen == 4:
-        hval = u32.shr(u32.mul(w[0], HASH_MUL), 15)
-    elif plen == 8:
-        hval = u32.shr(u32.mul(w[0], HASH_MUL) ^ u32.mul(w[1], HASH_MUL2),
-                       15)
-    else:
-        hval = u32.shr(u32.mul(w[0], HASH_MUL) ^ u32.mul(w[1], HASH_MUL2) ^
-                       u32.mul(w[2], HASH_MUL3) ^ u32.mul(w[3], HASH_MUL4),
-                       15)
+    h32 = u32.mul(w[0], HASH_MUL)
+    if plen >= 8:
+        h32 = h32 ^ u32.mul(w[1], HASH_MUL2)
+    if plen == 16:
+        h32 = h32 ^ u32.mul(w[2], HASH_MUL3) ^ u32.mul(w[3], HASH_MUL4)
     pos = torch.arange(data.shape[0], dtype=torch.int64, device=data.device)
-    key = torch.where(pos < npos, (hval << 14) | (pos >> 9),
-                      (1 << 31) | pos)
+    live = (u32.shr(h32, 1) if wide else
+            (u32.shr(h32, 15) << 14) | (pos >> 9))
+    key = torch.where(pos < npos, live, (1 << 31) | pos)
     return (key - (1 << 31)).to(torch.int32)
 
 
 def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks,
-                     base=0):
+                     base=0, row0=0, wide=False):
     """K10, plain version of the rank loop of optimal_jax._level_candidates
     and its sort back to position order. key_s, order: the stable sort
     of K9's int32 keys and its int64 order (only a stable sort gives the
@@ -268,12 +289,21 @@ def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks,
     any dist (a compound reference reaches the whole dictionary) and
     its length stops at the dictionary's end, dist - (base + pos). With
     base >= 0 no candidate lies there, so the result does not depend on
-    it. Returns int32 (n, len(ranks)) len << 25 | dist (0 where none),
-    in position order."""
+    it.
+
+    `row0`: the first position whose row is returned; the positions
+    before it are history (a segment's candidate halo), sources like
+    any other. Returns int32 (n - row0, len(ranks)) len << 25 | dist (0
+    where none), in position order: the rows from row0 on of the same
+    call with row0 0.
+
+    `wide`: the keys are K9's wide ones, and the hash compared is the
+    whole key (negative for every live row, so the head's fill of 2**17
+    still matches none)."""
     n = key_s.shape[0]
     pos_s = order
     w_s = [x[order] for x in _words(data)]
-    h_s = key_s >> 14
+    h_s = key_s if wide else key_s >> 14
     live = key_s < 0
     guard = torch.clamp(npos + 3 - pos_s, min=0)
     spos_s = base + pos_s  # stream positions
@@ -296,7 +326,7 @@ def edge_ranks_plain(key_s, order, data, npos, max_distance, ranks,
         packed_s[:, j] = ((mlen << 25) | torch.where(mlen > 0, dist, 0)).to(
             torch.int32)
     out[order] = packed_s  # back to position order
-    return out
+    return out[row0:]
 
 
 def edge_rows_plain(words, nranks):
@@ -307,25 +337,26 @@ def edge_rows_plain(words, nranks):
                      1)
 
 
-def edge_keys(data, npos, plen):
+def edge_keys(data, npos, plen, wide=False):
     """K9: the plain version on the CPU, csrc/edge_keys.cu on the card."""
     if data.device.type == "cpu":
-        return edge_keys_plain(data, npos, plen)
-    return kernels.edge_keys(data, npos, plen)
+        return edge_keys_plain(data, npos, plen, wide)
+    return kernels.edge_keys(data, npos, plen, wide)
 
 
 def edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
-               base=0):
-    """K10's level launch into the int32 (n, 16) `words` (position order,
-    zero past len(ranks)), filled in place: the plain version on the CPU,
-    csrc/edge_ranks.cu on the card."""
+               base=0, row0=0, wide=False):
+    """K10's level launch into the int32 (n - row0, 16) `words` (position
+    order from row0, zero past len(ranks)), filled in place: the plain
+    version on the CPU, csrc/edge_ranks.cu on the card."""
     if key_s.device.type == "cpu":
         words.zero_()
-        words[:, :len(ranks)] = edge_ranks_plain(key_s, order, data, npos,
-                                                 max_distance, ranks, base)
+        words[:, :len(ranks)] = edge_ranks_plain(
+            key_s, order, data, npos, max_distance, ranks, base, row0,
+            wide)
         return
     kernels.edge_ranks(key_s, order, data, npos, max_distance, ranks, words,
-                       base)
+                       base, row0, wide)
 
 
 def edge_rows(words, nranks):
@@ -336,21 +367,25 @@ def edge_rows(words, nranks):
     return kernels.edge_rows(words, nranks)
 
 
-def _candidates(data, npos, max_distance, levels=LEVELS, base=0):
+def _candidates(data, npos, max_distance, levels=LEVELS, base=0, row0=0,
+                wide=False):
     """Every level's rank candidates: per level K9, the stable sort and
     K10's level launch (the level's candidates as whole 16-word rows in
     position order), each level on its own npos - (plen - 4); then K10's
-    row pass into one int32 (n, ncand) table (13 + 14 columns; 37 with
-    the 16-byte level). `base`: K10's (edge_ranks_plain)."""
+    row pass into one int32 (n - row0, ncand) table (13 + 14 columns; 37
+    with the 16-byte level). `base`, `row0`, `wide`: K9's and K10's
+    (edge_keys_plain, edge_ranks_plain); a level's sort is freed before
+    the next one's."""
     n = data.shape[0]
-    words = torch.empty((len(levels), n, kernels.MAX_RANKS),
+    words = torch.empty((len(levels), n - row0, kernels.MAX_RANKS),
                         dtype=torch.int32, device=data.device)
     for lvl, (plen, ranks) in enumerate(levels):
         lvl_npos = max(npos - (plen - 4), 0)
-        key_s, order = torch.sort(edge_keys(data, lvl_npos, plen),
+        key_s, order = torch.sort(edge_keys(data, lvl_npos, plen, wide),
                                   stable=True)
         edge_ranks(key_s, order, data, lvl_npos, max_distance, ranks,
-                   words[lvl], base)
+                   words[lvl], base, row0, wide)
+        del key_s, order
     return edge_rows(words, [len(ranks) for _, ranks in levels])
 
 
@@ -505,7 +540,7 @@ def edge_slots(cand, data, max_distance, dist_sym_bits_q, seed_pos,
 def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
                    dist_sym_bits_q, seed_pos, seed_len, seed_dist,
                    dict_pos, dict_pay, seg_base, levels=LEVELS,
-                   dict_len=0, dist_params=(0, 0)):
+                   dict_len=0, dist_params=(0, 0), halo=0):
     """Stage 1 of a v3 segment: the candidates (K9, the sorts, K10) and
     the slot tables (K11): the 29 edge slots (27 candidate ranks, the
     atomic dictionary slot, the continuation slot; 39 with the 16-byte
@@ -520,13 +555,21 @@ def segment_tables(data, npos, max_distance, bits_tab, ctx_tab,
     (its `base`), and K11 is given the concatenated position and no
     clamp, so a static word's distance is that position + 1 + its
     offset, past every copy's; `_collect_v3` maps it to the stream's.
-    `dist_params`: the (npostfix, ndirect) K11 prices distances under."""
+    `dist_params`: the (npostfix, ndirect) K11 prices distances under.
+
+    `halo`: `data` holds that many bytes of history before the bucket
+    (the segment's candidate halo): K9, the sorts and K10 run over all
+    of it, K10 writes the bucket's rows only, and K11 and every stage
+    after see the bucket, data[halo:]; npos and seg_base are the
+    bucket's. At a window wider than 4 MiB the candidates rank on K9's
+    wide keys (_wide_window)."""
     if dict_len:
         slot_base, slot_max = seg_base + dict_len, FAR
     else:
         slot_base, slot_max = seg_base, max_distance
-    return edge_slots(_candidates(data, npos, max_distance, levels,
-                                  seg_base), data,
+    return edge_slots(_candidates(data, npos + halo, max_distance, levels,
+                                  seg_base - halo, halo,
+                                  _wide_window(max_distance)), data[halo:],
                       slot_max, dist_sym_bits_q, seed_pos, seed_len,
                       seed_dist, bits_tab, ctx_tab, dict_pos, dict_pay,
                       slot_base, dist_params)
@@ -821,12 +864,13 @@ def compact(gsrc, vals, npos):
 def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
                   dist_sym_bits_q, seed_pos, seed_len, seed_dist,
                   dict_pos, dict_pay, seg_base, *, capm, cfg=DPConfig(),
-                  icell_q=None, dict_len=0, dist_params=(0, 0)):
+                  icell_q=None, dict_len=0, dist_params=(0, 0), halo=0):
     """One segment's optimal parse (counterpart of
     optimal_jax._dp_v3_impl): edges -> K1 -> K3 (K8 with
     cfg.ring_scan, its edge capped by the implicit-cell row `icell_q`
-    with cfg.icell) -> K4 -> compaction. `dict_len` and `dist_params`:
-    segment_tables'.
+    with cfg.icell) -> K4 -> compaction. `dict_len`, `dist_params` and
+    `halo` (history bytes before the bucket in `data`, candidates
+    only): segment_tables'.
 
     Returns (packed, stacked): packed is int64 (2, capm + 8) holding
     uint32 values, with the match count at [0, 0] and matches at
@@ -835,7 +879,8 @@ def dp_v3_segment(data, npos, max_distance, bits_tab, ctx_tab, copyq,
     pd_flat, cs_flat, litq, dist_fill = segment_tables(
         data, npos, max_distance, bits_tab, ctx_tab, dist_sym_bits_q,
         seed_pos, seed_len, seed_dist, dict_pos, dict_pay, seg_base,
-        cfg.levels, dict_len, dist_params)
+        cfg.levels, dict_len, dist_params, halo)
+    data = data[halo:]
     mp = suffix_min(pd_flat, cs_flat, copyq)
     del pd_flat, cs_flat
     if cfg.ring_scan:
@@ -1000,13 +1045,6 @@ def _prep_segment_v3(arr, seeds_list, dpos_g, dpay_g, lo, hi, b):
             np.pad(dp_loc, (0, pad)), np.pad(dp_val, (0, pad)))
 
 
-def _slice_seg(dev_big, lo, b):
-    """The segment [lo, lo + b) of the uploaded buffer, with the start
-    clamped so the slice fits (lax.dynamic_slice semantics)."""
-    lo = max(min(lo, dev_big.shape[0] - b), 0)
-    return dev_big[lo:lo + b]
-
-
 def upload_input(arr, n, device, head=None):
     """One host-to-device copy of the whole bucket-padded input;
     segments are slices of it. `head`: bytes laid before the input (the
@@ -1057,12 +1095,13 @@ def _queue_v3(seg, arr, seeds_list, dict_g, lo, hi, h, dtabs, icell_q,
               max_distance, seg_base, cfg, **kw):
     """Queue the DP of segment [lo, hi) on the card without waiting for
     it: `seg` is its bucket on the device (the segment `h` bytes in,
-    then padding or what follows it), `dtabs` device_tables', the small
-    inputs built here, `kw` dp_v3_segment's other keywords. Returns the
-    v3 handle (lo, capm, packed, full, event, h); the event is recorded
-    when the work is queued."""
+    then padding or what follows it) after kw["halo"] bytes of candidate
+    history where given, `dtabs` device_tables', the small inputs built
+    here, `kw` dp_v3_segment's other keywords. Returns the v3 handle
+    (lo, capm, packed, full, event, h); the event is recorded when the
+    work is queued."""
     dev = seg.device
-    b = seg.shape[0]
+    b = seg.shape[0] - kw.get("halo", 0)
     capm = b // CAPM_DIV
     npos, spos, slen, sdist, dloc, dval = segment_inputs(
         arr, seeds_list, dict_g, lo, hi, b, dev, h)
@@ -1082,11 +1121,17 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
     at collect time. `dict_g`: an already computed _dict_probe_global
     result.
 
+    Each segment's buffer starts its `_halo` bytes of history before
+    it, sliced from `dev_big` with the segment: the part of the halo
+    that the bucket's padding holds rides in the bucket (the DP scans
+    it, and the collect drops its matches), the rest before it is
+    candidate rows only (dp_v3_segment's `halo`). Counter dp.halo_bytes:
+    the halo's bytes, once a segment.
+
     `hist` (a RawDictionary): `dev_big` holds its tail before the input
-    (upload_input's head), and each segment's buffer starts `_halo`
-    bytes before the segment, the DP running in the concatenated
-    distances of dp_v3_segment's `dict_len`. `dist_params`:
-    dp_v3_segment's."""
+    (upload_input's head), the halo reaches into it, and the DP runs in
+    the concatenated distances of dp_v3_segment's `dict_len`.
+    `dist_params`: dp_v3_segment's."""
     dev = dev_big.device
     dtabs = device_tables(tables, dev)
     icell_q = torch.from_numpy(tables[4].astype(np.int32)).to(dev) \
@@ -1099,14 +1144,14 @@ def _dispatch_v3(arr, n, max_distance, tables, seeds_list, dev_big, cfg,
     for lo in range(lo_start, n, SEG_V3):
         hi = min(lo + SEG_V3, n)
         b = _bucket_v3(hi - lo)
-        h = _halo(lo, hi, b, hist)
-        seg = (_slice_seg(dev_big, lo, b) if hist is None else
-               dev_big[head + lo - h:head + lo - h + b])
+        h = _halo(lo, hi, b, hist, max_distance)
+        hs = min(h, (b - (hi - lo)) // B * B)  # in the bucket's padding
+        trace.count("dp.halo_bytes", h)
         handles.append(_queue_v3(
-            seg, arr, seeds_list, dict_g, lo, hi, h, dtabs, icell_q,
-            max_distance, lo + base - h, cfg,
-            dict_len=0 if hist is None else hist.size,
-            dist_params=dist_params))
+            dev_big[head + lo - h:head + lo - hs + b], arr, seeds_list,
+            dict_g, lo, hi, hs, dtabs, icell_q, max_distance,
+            lo + base - hs, cfg, dict_len=0 if hist is None else hist.size,
+            dist_params=dist_params, halo=h - hs))
     dpos_g, _, dwlen_g = dict_g
     return handles, (dpos_g.astype(np.int64), dwlen_g)
 
@@ -1187,10 +1232,11 @@ def _collect_v3(handles, dict_table, max_distance, base=0, hist=None):
     edges; their word-length flags (2000 + wlen) come back from the
     host probe table.
 
-    With `hist` (the dcb route) a segment's matches in its halo are
-    dropped, the copies keep their concatenated distances, and a static
-    word is what lies past its concatenated position; its distance
-    becomes the stream's, min(pos, max_distance) + D + 1 + offset.
+    A segment's matches in the halo its bucket holds are dropped. With
+    `hist` (the dcb route) the copies keep their concatenated distances,
+    and a static word is what lies past its concatenated position; its
+    distance becomes the stream's, min(pos, max_distance) + D + 1 +
+    offset.
 
     Returns lists of (positions, lengths, distances, flags) in input
     coordinates, one entry a segment with matches, as _collect_v1."""
@@ -1415,6 +1461,132 @@ def _seed_parse(arr: np.ndarray, max_distance: int, base: int,
                                use_dict=False, device=device)
 
 
+FAR_MIN = 64        # the shortest long-range seed match
+_FAR_MULS = (0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+             0x27D4EB2F165667C5)
+
+
+def _far_matches(arr: np.ndarray, max_distance: int):
+    """Long-range matches for a window wider than a segment: exact copies
+    of FAR_MIN bytes or more from further back than SEG_V3 - 16 and at
+    most `max_distance`, none overlapping another. The native seed's
+    hasher keeps the last positions of each bucket, so a file's first
+    copy is evicted when the bytes between its two copies fill the
+    bucket, and whether they do depends on the order of what lies
+    between (a q9 parse inserts no position inside its copies).
+
+    Anchors are the positions whose 4-byte word hashes to 0 in its top 6
+    bits (one in 64); each takes the nearest earlier anchor with the
+    same 32 bytes' hash as its source. Anchors in a row at one distance,
+    less than 4 KiB apart, make one run; each run, widened by 512 bytes
+    on both sides, is compared with its source 8 bytes at a time, its
+    equal stretches are grown byte by byte at both ends, and those of
+    FAR_MIN or more are the matches, each cut to start after the ones
+    before it end. Returns int64 (pos, len, dist)."""
+    n = len(arr)
+    z = np.zeros(0, np.int64)
+    if n < SEG_V3 + 64:
+        return z, z, z
+    a = np.ascontiguousarray(arr, np.uint8)
+    w = np.ndarray((n - 7,), "<u8", a, 0, (1,))  # the 8 bytes at p
+    w4 = (a[:n - 31].astype(np.uint32) | a[1:n - 30].astype(np.uint32) << 8 |
+          a[2:n - 29].astype(np.uint32) << 16 |
+          a[3:n - 28].astype(np.uint32) << 24)
+    muls = [np.uint64(k) for k in _FAR_MULS]
+    with np.errstate(over="ignore"):
+        anc = np.flatnonzero((w4 * np.uint32(0x9E3779B1)) >> np.uint32(26)
+                             == 0)
+        key = ((w[anc] * muls[0]) ^ (w[anc + 8] * muls[1]) ^
+               (w[anc + 16] * muls[2]) ^ (w[anc + 24] * muls[3]))
+    del w4
+    order = np.lexsort((anc, key))
+    ks, ps = key[order], anc[order]
+    dist = np.zeros(len(ps), np.int64)
+    dist[1:] = np.where(ks[1:] == ks[:-1], ps[1:] - ps[:-1], 0)
+    keep = (dist > SEG_V3 - 16) & (dist <= max_distance)
+    p, d = ps[keep], dist[keep]
+    by_pos = np.argsort(p, kind="stable")
+    p, d = p[by_pos], d[by_pos]
+    if not len(p):
+        return z, z, z
+    # runs: anchors in a row at one distance, less than 4 KiB apart
+    new = np.ones(len(p), bool)
+    new[1:] = (d[1:] != d[:-1]) | (p[1:] - p[:-1] > 4096)
+    last = np.flatnonzero(np.append(new[1:], True))
+    rd = d[new]
+    lo = np.maximum(p[new] - 512, rd)
+    nw = (np.minimum(p[last] + 32 + 512, n - 8) - lo) // 8  # whole words
+    # every word of every run against its source's
+    at = np.repeat(lo - 8 * (np.cumsum(nw) - nw), nw) + \
+        8 * np.arange(int(nw.sum()))
+    run = np.repeat(np.arange(len(lo)), nw)
+    eq = w[at] == w[at - rd[run]]
+    joined = np.concatenate([eq[1:] & eq[:-1] & (run[1:] == run[:-1]),
+                             [False]])
+    first = eq & ~np.concatenate([[False], joined[:-1]])
+    m, e = at[first], at[eq & ~joined] + 8
+    dd = rd[run[first]]
+    # grow each stretch byte by byte, at most 7 each way
+    for _ in range(7):
+        back = (m > dd) & (a[np.maximum(m - 1, 0)] ==
+                           a[np.maximum(m - 1 - dd, 0)])
+        m = m - back
+        fwd = (e < n) & (a[np.minimum(e, n - 1)] == a[np.minimum(e, n - 1) - dd])
+        e = e + fwd
+    # cut each to start after the ones before it end; drop the short
+    order = np.lexsort((m - e, m))
+    m, e, dd = m[order], e[order], dd[order]
+    m = np.maximum(m, np.maximum.accumulate(np.concatenate([[0], e[:-1]])))
+    ok = e - m >= FAR_MIN
+    return m[ok], (e - m)[ok], dd[ok]
+
+
+def _minus(s, e, cs, ce):
+    """The pieces of the intervals [s, e) outside the sorted disjoint
+    intervals [cs, ce): (starts, ends, the index of each piece's
+    interval)."""
+    big = np.iinfo(np.int64).max
+    gs = np.concatenate([[0], ce])      # the gaps between them
+    ge = np.concatenate([cs, [big]])
+    i0 = np.searchsorted(ge, s, side="right")
+    cnt = np.maximum(np.searchsorted(gs, e, side="left") - i0, 0)
+    src = np.repeat(np.arange(len(s)), cnt)
+    g = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt) + \
+        np.repeat(i0, cnt)
+    ps, pe = np.maximum(s[src], gs[g]), np.minimum(e[src], ge[g])
+    ok = pe > ps
+    return ps[ok], pe[ok], src[ok]
+
+
+def _with_far(seed, far):
+    """The seed parse with long-range matches: each byte is copied by the
+    seed's copy from past SEG_V3 - 16 that covers it, else by `far`'s
+    (pos, len, dist), else by the seed's nearer copy; a copy cut to the
+    bytes it keeps is still a copy at its distance. Pieces shorter than
+    4 bytes are dropped. In position order."""
+    m, lens, dists, flags = seed
+    fm, fl, fd = far
+    if not len(fm):
+        return seed
+    far_s = dists > SEG_V3 - 16
+    am, ae, ad = m[far_s], (m + lens)[far_s], dists[far_s]
+    bm, be, src = _minus(fm, fm + fl, am, ae)
+    bd = fd[src]
+    um = np.concatenate([am, bm])
+    order = np.argsort(um, kind="stable")
+    um, ue = um[order], np.concatenate([ae, be])[order]
+    near = ~far_s
+    cm, ce, src = _minus(m[near], (m + lens)[near], um, ue)
+    cd = dists[near][src]
+    pos = np.concatenate([am, bm, cm])
+    end = np.concatenate([ae, be, ce])
+    dist = np.concatenate([ad, bd, cd])
+    keep = end - pos >= 4
+    order = np.argsort(pos[keep], kind="stable")
+    pos, end, dist = pos[keep][order], end[keep][order], dist[keep][order]
+    return pos, end - pos, dist, np.zeros(len(pos), flags.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class RawDictionary:
     """A raw dictionary the stream is compressed with (RFC 9842's `dcb`,
@@ -1427,22 +1599,30 @@ class RawDictionary:
     size: int
 
 
-def _halo(lo, hi, b, hist):
-    """The bytes before segment [lo, hi) that ride in its bucket's
-    padding as candidate history (the dcb route): as many whole DP
-    blocks of what precedes it, the dictionary's tail included, as the
-    padding holds, so the segment starts on a block and no match of the
-    halo runs into it. The scan runs over the whole bucket whether it
-    holds padding or history. 0 without a dictionary."""
-    if hist is None:
+def _halo(lo, hi, b, hist, max_distance):
+    """The history before segment [lo, hi), in whole DP blocks, that its
+    candidate rows hold (_dispatch_v3), so the segment starts on a block
+    and no match of the halo runs into it.
+
+    With a raw dictionary (the dcb route): as much of what precedes the
+    segment, the dictionary's tail included, as the bucket's padding
+    holds. Without: the input's bytes that the segment's last position
+    can still reach, min(lo, window - SEG_V3), so every position can:
+    4, 8 and 12 MiB for the segments from the second on at lgwin 24. A
+    window of 4 MiB or less (lgwin 22 and below) takes none, at any
+    segment size: its segments keep the JAX package's segment-local
+    candidates."""
+    if hist is not None:
+        return min(b - (hi - lo), hist.size + lo) // B * B
+    if not _wide_window(max_distance):
         return 0
-    return min(b - (hi - lo), hist.size + lo) // B * B
+    return max(min(lo, max_distance + 16 - SEG_V3), 0) // B * B
 
 
 def _dict_head(n, hist):
     """How much of the dictionary's tail the segments' halos reach."""
     return max([_halo(lo, min(lo + SEG_V3, n),
-                      _bucket_v3(min(lo + SEG_V3, n) - lo), hist) - lo
+                      _bucket_v3(min(lo + SEG_V3, n) - lo), hist, 0) - lo
                 for lo in range(0, n, SEG_V3)] + [0])
 
 
@@ -1512,19 +1692,50 @@ def _bridge(arr, hist, m, lens, dists, flags):
     return m - hist.size, lens, dists, flags
 
 
+def _count_far(m, lens, dists, flags, seed):
+    """Counters of final matches: dp.far_bytes, the bytes of their
+    copies whose distance exceeds SEG_V3 - 16 (at the default segment
+    lgwin 22's longest, so bytes that only a wider window reaches), and
+    dp.far_seed_bytes, those of them that the seed parse `seed` copies
+    from the same distance; the rest came from the DP's candidates."""
+    far_d = SEG_V3 - 16
+    far = (flags == 0) & (dists > far_d)
+    a, ln, d = m[far], lens[far], dists[far]
+    trace.count("dp.far_bytes", int(ln.sum()))
+    sm, sl, sd, sf = seed
+    keep = (sf == 0) & (sd > far_d)
+    sm, sl, sd = sm[keep], sl[keep], sd[keep]
+    # a parse's copies are disjoint and in order: those overlapping
+    # [a, a + ln) run from the first that ends after a to the last that
+    # starts before a + ln
+    i0 = np.searchsorted(sm + sl, a, side="right")
+    cnt = np.maximum(np.searchsorted(sm, a + ln) - i0, 0)
+    own = np.repeat(np.arange(len(a)), cnt)
+    j = (np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt) +
+         np.repeat(i0, cnt))
+    ov = (np.minimum(a[own] + ln[own], sm[j] + sl[j]) -
+          np.maximum(a[own], sm[j]))
+    trace.count("dp.far_seed_bytes", int(ov[sd[j] == d[own]].sum()))
+
+
 def _finish(arr, m, lens, dists, flags, max_distance, base, hist,
-            active_from=0):
+            active_from=0, seed=None):
     """The static-dictionary post-pass, and with a dictionary the lift
-    to compound references; static words past the compound region."""
+    to compound references; static words past the compound region. With
+    tracing on and the request's `seed` parse given, _count_far's
+    counters of the final matches."""
     D = 0 if hist is None else hist.size
     with trace.stage("dp.dict-post"):
         m, lens, dists, flags = add_dictionary_matches(
             arr, m, lens, dists, flags, max_distance + D, base + D,
             active_from=active_from)
-    if hist is None:
-        return m, lens, dists, flags
-    with trace.stage("dcb.lift"):
-        return lift_compound(m, lens, dists, flags, D, max_distance)
+    if hist is not None:
+        with trace.stage("dcb.lift"):
+            m, lens, dists, flags = lift_compound(m, lens, dists, flags, D,
+                                                  max_distance)
+    if trace.enabled() and seed is not None:
+        _count_far(m, lens, dists, flags, seed)
+    return m, lens, dists, flags
 
 
 def _join(arr, hist, parts, pend=None):
@@ -1540,25 +1751,25 @@ def _join(arr, hist, parts, pend=None):
             *(np.concatenate(q) for q in parts)))
 
 
-def _batch_tail(arr, parts, max_distance, base, hist=None):
+def _batch_tail(arr, parts, max_distance, base, hist=None, seed=None):
     """The parse of a whole collect: its matches joined (_join), then
-    _finish. A parse without matches gets no post-pass, as in the JAX
-    package."""
+    _finish (`seed`: its). A parse without matches gets no post-pass, as
+    in the JAX package."""
     joined = _join(arr, hist, parts)
     if joined is None:
         z = np.zeros(0, np.int64)
         return z, z, z, z
-    return _finish(arr, *joined, max_distance, base, hist)
+    return _finish(arr, *joined, max_distance, base, hist, seed=seed)
 
 
 def _emit_spans(arr, groups, collect, seg, mb_size, max_distance, base,
-                on_block, hist=None):
+                on_block, hist=None, seed=None):
     """The streamed parse: collect the groups of `seg`-byte segments'
     handles in order, and after each join its matches to those carried
     from a span not yet emitted (_join), then pass `on_block` every
     metablock span the collected prefix covers while the card computes
     the later groups. A span's matches are split at its end (what
-    crosses it is carried) and final after `_finish`."""
+    crosses it is carried) and final after `_finish` (`seed`: its)."""
     n = len(arr)
     pend = (np.zeros(0, np.int64),) * 4
     emitted = 0
@@ -1576,7 +1787,7 @@ def _emit_spans(arr, groups, collect, seg, mb_size, max_distance, base,
                 pend = (pm[~take], pl[~take], pd[~take], pf[~take])
             on_block(emitted, mb_hi, _finish(arr[:mb_hi], *span,
                                              max_distance, base, hist,
-                                             emitted))
+                                             emitted, seed))
             emitted = mb_hi
 
 
@@ -1591,7 +1802,12 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
 
     v3 with one iteration dispatches the first segment early from a
     seed parse local to its window (cfg.fast_first), so the full-input
-    seed and dictionary probe run while the card works on it.
+    seed and dictionary probe run while the card works on it. Where the
+    window is wider than 4 MiB (lgwin 23 and 24), each later v3
+    segment also ranks candidates over the input before it that its
+    window reaches (_halo), and the seed parse takes the long-range
+    matches, found on a thread beside it (_far_matches, _with_far;
+    stage dp.far-seed: the wait for them and the merge).
 
     `dictionary`: raw bytes the stream is compressed with (RFC 9842
     `dcb`; v3 only, `base` 0). The DP parses the input's positions
@@ -1648,8 +1864,15 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
                               dist_params=dist_params)[0], dict1)
     dict_g = None
     if hist is None:
-        with trace.stage("dp.seed"):
-            seed = _seed_parse(arr, max_distance, base, dev, cfg.seed_q)
+        with futures.ThreadPoolExecutor(1) as ex:
+            # long-range matches beside the seed parse (_far_matches)
+            far = (ex.submit(_far_matches, arr[:n], max_distance)
+                   if _wide_window(max_distance) else None)
+            with trace.stage("dp.seed"):
+                seed = _seed_parse(arr, max_distance, base, dev, cfg.seed_q)
+            if far is not None:
+                with trace.stage("dp.far-seed"):
+                    seed = _with_far(seed, far.result())
     else:
         with trace.stage("dcb.seed"):
             seed = _seed_parse_dcb(hist, max_distance, cfg.seed_q)
@@ -1684,7 +1907,8 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
         handles = early[0] + handles
         dict_table = _merge_probes(early[1], dict_table)
     if on_block is None:
-        return _batch_tail(arr, collect(handles), max_distance, base, hist)
+        return _batch_tail(arr, collect(handles), max_distance, base, hist,
+                           seed)
     # v1: a segment a group; v3: two halves when whole metablocks fill
     # them, else one group
     size = (1 if not v3 else (len(handles) + 1) // 2
@@ -1692,7 +1916,7 @@ def find_matches_optimal(data: np.ndarray, max_distance: int,
     _emit_spans(arr, [handles[i:i + size] for i in
                       range(0, len(handles), max(size, 1))],
                 collect, SEG_V3 if v3 else SEG, mb_size, max_distance,
-                base, on_block, hist)
+                base, on_block, hist, seed)
     return None
 
 

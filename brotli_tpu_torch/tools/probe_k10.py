@@ -12,7 +12,10 @@ each build's registers, shared memory and spills):
     keys and a K10 that reads them (the first versions, one launch a
     level into the (n, ncand) table) get the JAX uint32 key in int64,
     the others the int32 key - 2**31; a K10 with a row pass writes each
-    level's 16-word rows, then the table;
+    level's 16-word rows, then the table; every build but a first
+    version has to take this tree's launch arguments, which it is
+    called with at 0 (JAX keys, no halo; a source from before one of
+    them was an argument ends the run);
   - from the first --against source (or this tree's K10 while it is
     still the first version), if it is the first version:
     "stores_only", each row's words made from its key and position with
@@ -59,12 +62,15 @@ _ARGS = {
     "btt_edge_ranks_v1": [_P, _P, _P, _P, _I64, _INT, _INT, _P, _INT, _I64,
                           _I64, _P],
     "btt_edge_ranks": kernels._SIGNATURES["btt_edge_ranks"],
-    # before the stream's base (a raw dictionary's halo) was an argument
-    "btt_edge_ranks_nobase": kernels._SIGNATURES["btt_edge_ranks"][:-2] +
-    [_P],
     "btt_edge_rows": kernels._SIGNATURES["btt_edge_rows"],
+    # the first version: the uint32 key zero-extended in int64
+    "btt_edge_keys_v1": [_P, _P, _I64, _INT, _I64, _P],
     "btt_edge_keys": kernels._SIGNATURES["btt_edge_keys"],
 }
+# the arguments after which this tree's entry points end (the stream's
+# base, the first row written, the wide keys), each passed as 0
+_TAIL = {"btt_edge_ranks": ("long long base", "long long row0", "int wide"),
+         "btt_edge_keys": ("int wide",)}
 # the first version's row pointer, and what the two diagnostic builds
 # make of it
 _ROW = "  int* row = out + p * ld + col;\n"
@@ -83,17 +89,19 @@ def _wide_keys(src: str, symbol: str) -> bool:
     return "long long* key" in head
 
 
-def _takes_base(src: str) -> bool:
-    """Does the source's btt_edge_ranks take the stream's base?"""
-    head = src[src.index('extern "C" int btt_edge_ranks('):]
-    return "long long base" in head[:head.index(")")]
+def _current(src: str, symbol: str) -> bool:
+    """Does the source's entry point take this tree's arguments?"""
+    head = src[src.index(f'extern "C" int {symbol}('):]
+    head = head[:head.index(")")]
+    return all(arg in head for arg in _TAIL[symbol])
 
 
 def _build(sources: dict) -> dict:
     """{name: (.cu text, symbol)} -> {name: (function, int64 keys?,
     btt_edge_rows or None)}, one nvcc each, all started together; prints
-    ptxas's report of each kernel. A two-launch K10 is called with the
-    stream's base 0 where its entry point takes one."""
+    ptxas's report of each kernel. A build of this tree's arguments is
+    called with the later ones (_TAIL) 0; a first version (int64 keys)
+    with its own; one of other arguments ends the run."""
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (text, _) in sources.items():
@@ -116,13 +124,14 @@ def _build(sources: dict) -> dict:
         lib = ctypes.CDLL(str(_OUT / f"lib{name}.so"))
         wide = _wide_keys(text, symbol)
         fn = getattr(lib, symbol)
-        k10 = symbol == "btt_edge_ranks"
-        fn.argtypes = _ARGS[symbol + (
-            "_v1" if wide and k10 else
-            "_nobase" if k10 and not _takes_base(text) else "")]
+        if not wide and not _current(text, symbol):
+            raise SystemExit(f"probe_k10: {name}'s {symbol} takes other "
+                             f"arguments than this tree's")
+        fn.argtypes = _ARGS[symbol + ("_v1" if wide else "")]
         fn.restype = ctypes.c_int
-        if k10 and not wide and _takes_base(text):
-            fn = (lambda f: lambda *a: f(*a[:-1], 0, a[-1]))(fn)
+        if not wide:
+            fn = (lambda f, z: lambda *a: f(*a[:-1], *z, a[-1]))(
+                fn, (0,) * len(_TAIL[symbol]))
         rows = getattr(lib, "btt_edge_rows", None)
         if rows is not None:
             rows.argtypes, rows.restype = _ARGS["btt_edge_rows"], ctypes.c_int

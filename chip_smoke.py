@@ -10,7 +10,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      segment's real inputs (every level, the 16-byte one too) and on
      seeded cases (a tail-padded segment, npos 0 and n, all-zero bytes,
      the small window, K10 with a raw dictionary's tail in the bucket
-     (base -1 and -2 MiB, the second at the small window), duplicate
+     (base -1 and -2 MiB, the second at the small window), K9 and K10
+     with a halo (the 16 MiB corpus as one segment's candidate rows,
+     the first 12 MiB history, lgwin 24's window: the q11_w24 cell's
+     shape; K10's halo launch timed, row K10h), duplicate
      seed starts and dictionary hits, random candidate words, the v1
      layout), then the card's operations of one
      dp_v3_segment call with the plain edges and with K9-K11 (at most
@@ -30,7 +33,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
      and peak device memory counted; decoded back exactly) and a traced
      run for the stage breakdown, all with the same bytes; K9 and K10
      twice and K11, K1, K3, K4 once a segment; dp.dispatch of the
-     traced run;
+     traced run; then lgwin 24 on the q11_w24 cell's shape (the corpus
+     and its first 16 KiB again, 16,793,600 B: five segments, the four
+     after the first with a halo), a first run and a counted run with
+     the same bytes, decoded back: K9 and K10 launched over a halo
+     twice a later segment (their launches are row K10h's), dp.halo_bytes
+     4 + 8 + 12 + 12 MiB;
   5. the same q11 bytes from the kernels and from the plain versions on
      the CPU, for a 512 KiB prefix;
   6. the q5 path: parallel.shard.compress_sharded(corpus, quality=5),
@@ -727,10 +735,10 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
     seg_fn = lambda: OPT.dp_v3_segment(*args, capm=b // OPT.CAPM_DIV)
     swap = dict(
         edge_keys=OPT.edge_keys_plain,
-        edge_ranks=lambda ks, o, d, np_, w, r, words, base=0: words.copy_(
-            torch.nn.functional.pad(
-                OPT.edge_ranks_plain(ks, o, d, np_, w, r, base),
-                (0, words.shape[1] - len(r)))),
+        edge_ranks=lambda ks, o, d, np_, w, r, words, base=0, row0=0,
+        wide=False: words.copy_(torch.nn.functional.pad(
+            OPT.edge_ranks_plain(ks, o, d, np_, w, r, base, row0, wide),
+            (0, words.shape[1] - len(r)))),
         edge_rows=OPT.edge_rows_plain,
         edge_slots=OPT.edge_slots_plain)
     keep = {k: getattr(OPT, k) for k in swap}
@@ -756,6 +764,74 @@ def edge_kernels(arr, seg, maxd, rows, dev, card):
                  f"operations (at most 100), or differs with the plain "
                  f"edges")
     return ops_plain, ops
+
+
+def edge_ranks_halo(arr, rows, dev, card):
+    """Phase 3's K10 with a halo, at the q11_w24 cell's last full
+    segment: the 16 MiB corpus as one segment's candidate rows, its
+    first 12 MiB history before a 4 MiB bucket (row0), lgwin 24's
+    window, on K9's wide keys as the route ranks there. K9 on the 16 Mi
+    rows and K10's level launch writing the bucket's rows only, each bit
+    for bit against its plain version on the card, both levels; K10's
+    rows also against the rows from row0 of its halo-free launch over
+    the same rows; then K10's halo launch at the 8-byte level timed
+    alone and beside its plain version (row "K10h")."""
+    from brotli_tpu_torch.ops import kernels, optimal as OPT
+    maxd = (1 << 24) - 16
+    data = OPT.upload_input(arr, len(arr), dev)[:len(arr)]
+    nh = data.shape[0]
+    row0 = nh - OPT.SEG_V3
+    errs = {}
+    for plen, ranks in OPT.LEVELS:
+        lnp = nh - 3 - (plen - 4)
+        key = kernels.edge_keys(data, lnp, plen, wide=True)
+        errs[f"K9 {plen}"] = max_abs_err(
+            key, OPT.edge_keys_plain(data, lnp, plen, wide=True))
+        key_s, order = torch.sort(key, stable=True)
+        del key
+        words = torch.empty((nh - row0, kernels.MAX_RANKS),
+                            dtype=torch.int32, device=dev)
+        kernels.edge_ranks(key_s, order, data, lnp, maxd, ranks, words, 0,
+                           row0, wide=True)
+        want = OPT.edge_ranks_plain(key_s, order, data, lnp, maxd, ranks, 0,
+                                    row0, wide=True)
+        errs[f"K10h {plen}"] = max(
+            max_abs_err(words[:, :len(ranks)], want),
+            int(words[:, len(ranks):].abs().max()))
+        whole = torch.empty((nh, kernels.MAX_RANKS), dtype=torch.int32,
+                            device=dev)
+        kernels.edge_ranks(key_s, order, data, lnp, maxd, ranks, whole,
+                           wide=True)
+        errs[f"K10h {plen} halo-free"] = max_abs_err(words, whole[row0:])
+        far = int(((want & ((1 << 25) - 1)) > OPT.SEG_V3 - 16).sum())
+        print(f"[3] K10 halo, level {plen}: {far} of the bucket's "
+              f"candidates reach past SEG_V3 - 16", flush=True)
+        del whole, want
+    torch.cuda.synchronize()
+    print(f"[3] K9/K10 with a halo ({nh} rows, row0 {row0}): max_abs_err "
+          f"{errs}", flush=True)
+    if any(errs.values()):
+        sys.exit("chip_smoke: K9 or K10 with a halo differs from its plain "
+                 "version")
+    rows["K10h"] = dict(
+        name="edge_ranks", counted_as="edge_ranks_halo", route="cuda",
+        source="brotli_tpu_torch/csrc/edge_ranks.cu",
+        replaces="brotli_tpu/ops/optimal_jax.py:149",
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: kernels.edge_ranks(key_s, order, data, lnp, maxd,
+                                              ranks, words, 0, row0, True),
+                   10),
+        device_ms=cuda_ms(lambda: kernels.edge_ranks(
+            key_s, order, data, lnp, maxd, ranks, words, 0, row0, True), 10,
+            queued=True),
+        plain_ms=cuda_ms(lambda: OPT.edge_ranks_plain(
+            key_s, order, data, lnp, maxd, ranks, 0, row0, True), 2),
+        # the keys, the order and the bytes of every row; the bucket's
+        # words (rows padded to 64 bytes, which the bound does not count)
+        nbytes=4 * nh + 8 * nh + nh + 4 * len(ranks) * (nh - row0),
+        # a written row's ranks: about 8 operations each
+        nops=(nh - row0) * len(ranks) * 8, n=nh)
+    del key_s, order, words, data
 
 
 def dict_probe_check(arr, maxd, rows, dev, card):
@@ -905,6 +981,52 @@ def three_runs(fn, trace, kernels, label, corpus, decompress, card,
     if not first == out == again:
         sys.exit(f"chip_smoke: {label} runs on the same input differ")
     return launches, out
+
+
+def q11_lgwin24(corpus, trace, kernels, card):
+    """Phase 4's lgwin 24 request on the q11_w24 cell's shape: the corpus
+    and its first 16 KiB again, compressed twice on the card with the
+    same bytes, decoded back; in the second run the launches of K9 and
+    K10 over a halo (more rows than a 4 MiB bucket, a first row past 0)
+    and dp.halo_bytes are counted. Returns those launches."""
+    import brotli_tpu_torch as bt
+    from brotli_tpu_torch.ops import optimal as OPT
+    doc = corpus + corpus[:16 << 10]
+    first = bt.compress(doc, quality=11, lgwin=24)
+    halo = {"edge_keys": 0, "edge_ranks": 0}
+    keys, ranks = kernels.edge_keys, kernels.edge_ranks
+
+    def keys_counted(data, *a):
+        halo["edge_keys"] += data.shape[0] > OPT.SEG_V3
+        return keys(data, *a)
+
+    def ranks_counted(*a):
+        halo["edge_ranks"] += a[8] > 0  # row0
+        return ranks(*a)
+    kernels.edge_keys, kernels.edge_ranks = keys_counted, ranks_counted
+    torch.cuda.reset_peak_memory_stats()
+    trace.reset()
+    trace.enable()
+    try:
+        out, wall = timed(lambda: bt.compress(doc, quality=11, lgwin=24))
+    finally:
+        trace.enable(False)
+        kernels.edge_keys, kernels.edge_ranks = keys, ranks
+    got = trace.counters().get("dp.halo_bytes", 0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    q11 lgwin 24: {len(doc)} B -> {len(out)} B (ratio "
+          f"{len(doc) / len(out):.4f}) in {wall:.3f} s (traced) [{card}]; "
+          f"peak device memory {peak:.2f} GiB; launches over a halo "
+          f"{halo}; dp.halo_bytes {got}", flush=True)
+    if out != first or bt.decompress(out) != doc:
+        sys.exit("chip_smoke: the lgwin 24 stream differs between runs or "
+                 "does not decode back")
+    want = 2 * (-(-len(doc) // OPT.SEG_V3) - 1)
+    if halo != {"edge_keys": want, "edge_ranks": want} or \
+            got != (4 + 8 + 12 + 12) << 20:
+        sys.exit(f"chip_smoke: lgwin 24 launched {halo} over a halo, not "
+                 f"{want} each, with dp.halo_bytes {got}")
+    return halo
 
 
 def seeded_k5_k6(dev, n5=1 << 24, b6=1 << 22):
@@ -2195,6 +2317,8 @@ def main():
     rows = {}
     seg_ops = edge_kernels(arr, seg, maxd, rows, dev, card)
     torch.cuda.empty_cache()
+    edge_ranks_halo(arr, rows, dev, card)
+    torch.cuda.empty_cache()
     dict_probe_check(arr, maxd, rows, dev, card)
     seed = OPT._seed_parse(seg, maxd, 0)
     tables = OPT._cost_tables(seg, seed, lit_table=True, cfg=OPT.DPConfig())
@@ -2413,6 +2537,7 @@ def main():
           f"{calls} segments (host clock); device operations per "
           f"dp_v3_segment {seg_ops[1]} (plain edges {seg_ops[0]}) [{card}]",
           flush=True)
+    halo_launches = q11_lgwin24(corpus, trace, kernels, card)
 
     # -- 5. kernels and plain versions give the same stream ---------------
     prefix = corpus[:512 << 10]
@@ -2491,14 +2616,16 @@ def main():
                          bitpack=launches_ds["bitpack"],
                          lz_resolve=launches_dec["lz_resolve"],
                          dp_scan_v1=launches_v1["dp_scan_v1"],
-                         dp_scan_ring=launches_ring["dp_scan_ring"])
+                         dp_scan_ring=launches_ring["dp_scan_ring"],
+                         edge_ranks_halo=halo_launches["edge_ranks"])
     kern = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10", "K10b", "K11", "K12"):
+                "K10", "K10h", "K10b", "K11", "K12"):
         r = rows[key]
         kern.append(dict(name=r["name"], route=r["route"],
                          source=r["source"], replaces=r["replaces"],
-                         launches=path_launches[r["name"]],
+                         launches=path_launches[r.get("counted_as",
+                                                      r["name"])],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          device_ms=r["device_ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -265,11 +265,17 @@ def test_dcb_counters_sum_over_the_spans_of_a_request(monkeypatch):
     assert got.pop("serialize.dist_extra_bits") > 0
     # and the metablocks whose literal passes ran on several threads
     assert 0 <= got.pop("serialize.threaded") <= 2
-    # and the request's one dictionary probe (ops/optimal)
+    # and the request's one dictionary probe, its one segment's halo (the
+    # dictionary's tail in the bucket's padding, in whole DP blocks) and
+    # the far copies, none past SEG_V3 - 16 at lgwin 16 (ops/optimal)
     assert set(got) - set(want) == {"dp.dict-probe.bytes",
                                     "dp.dict-probe.positions",
                                     "dp.dict-probe.hits",
-                                    "dp.dict-probe.overflows"}
+                                    "dp.dict-probe.overflows",
+                                    "dp.halo_bytes", "dp.far_bytes",
+                                    "dp.far_seed_bytes"}
+    assert got["dp.halo_bytes"] == ((1 << 17) - len(doc)) // O.B * O.B > 0
+    assert got["dp.far_bytes"] == got["dp.far_seed_bytes"] == 0
     assert got["dp.dict-probe.overflows"] == 0
     assert got["dp.dict-probe.bytes"] == len(doc)
     assert 0 < got["dp.dict-probe.positions"] <= len(doc) - 3
